@@ -2,19 +2,28 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once on the card and checks it:
+Drives the port's main paths on the card and checks them:
 
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the hand-written kernels (csrc/*.cu, nvcc, sm_90a)
-     and the host SA-IS oracle from this checkout's sources;
-  3. kernel vs plain: the pack kernel against its plain PyTorch fold on
-     the card, exact, at the test shapes and at 2^28 bytes of random
-     alnum and DNA, with both times (CUDA events, median of 5);
-  4. correctness at 2^24: random alnum, DNA, period-1000 repetitive and
-     words through build_suffix_array -> build_lcp_array -> LRS ->
-     validator, against host SA-IS, Kasai and the LRS oracle;
-  5. full size: the CLI's run() on 2^28 bytes of random alnum with
-     validation, counting the pack kernel's launches.
+  2. build: compiles the hand-written kernels (csrc/*.cu, one nvcc per
+     source in parallel, sm_90a) and the host SA-IS oracle from this
+     checkout's sources;
+  3. kernels vs plain, exact, with both times (CUDA events, median of
+     5): the pack kernel (K1) at the test shapes, in word mode (words
+     0-2, four packings, with and without minpad) and at 2^28 bytes of
+     random alnum and DNA; K2 block_digit_sort and K3 place_runs at
+     rbits 4 and 8, 2^16 and 2^28, uniform and 95%-skewed keys; the
+     radix sort at 2^28 on the real alnum key words, beside torch.sort;
+  4. correctness: random alnum, DNA, period-1000 repetitive and words
+     at 2^22 (the doubling route) and 2^24 (the direct route) through
+     build_suffix_array -> build_lcp_array -> LRS -> validator, against
+     host SA-IS, Kasai and the LRS oracle, printing each route;
+  5. full size, main path: the CLI's run() on 2^28 bytes of random alnum
+     with validation, which must take the direct route, counting the
+     kernels' launches; then the doubling builder plus PLCP on the same
+     text, which must give the same SA and LCP byte for byte;
+  6. the CLI's run() on 2^28 bytes of period-1000 text, validated, in
+     chain mode on the direct route.
 
 Any failed phase raises and the script exits nonzero. The line before
 the last is a JSON summary of the kernels; the last line is
@@ -37,20 +46,35 @@ from hpc_suffix_array_tpu_torch import (
     build_lcp_array, build_suffix_array, find_longest_repeated_substring,
     is_valid_suffix_array, native)
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
-from hpc_suffix_array_tpu_torch.core.suffix_array import alphabet_remap
+from hpc_suffix_array_tpu_torch.core.bigsort import direct_keys
+from hpc_suffix_array_tpu_torch.core.lcp import lcp_from_plcp, plcp_kernel
+from hpc_suffix_array_tpu_torch.core.suffix_array import (
+    alphabet_remap, as_byte_tensor, build_suffix_array_doubling)
 from hpc_suffix_array_tpu_torch.datasets import (
     generate_dna_text, generate_random_text, generate_repetitive_text,
     generate_words_text)
 from hpc_suffix_array_tpu_torch.kernels import _build
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference)
+from hpc_suffix_array_tpu_torch.kernels.radix import (
+    block_digit_sort, block_digit_sort_reference, place_runs,
+    place_runs_reference, radix_sort_words, radix_sort_words_reference,
+    run_offsets)
 
 FULL_N = 1 << 28
-CHECK_N = 1 << 24
+CHECK_SIZES = (1 << 22, 1 << 24)
 SEED = 0
 # (n, bits, h0) of the kernel tests, plus an n that is not a multiple of 128.
 SMALL_CASES = [(128, 6, 5), (128 * 8, 3, 10), (128 * 9, 9, 3),
                (128 * 513, 6, 5), (1 << 17, 1, 30), (1000, 6, 5)]
+# (bits, spw) of the carried-keys packings, and word-mode lengths (the
+# last is not a multiple of the 4096-position tile).
+WORD_CASES = [(6, 5), (2, 15), (1, 30), (8, 3)]
+WORD_SIZES = [1000, 128 * 513, 4096 * 3 + 5]
+CORPORA = (("random alnum", generate_random_text),
+           ("DNA", generate_dna_text),
+           ("repetitive p1000", generate_repetitive_text),
+           ("words", generate_words_text))
 
 
 def phase(msg: str) -> None:
@@ -64,53 +88,151 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events, after warm-up)."""
-    fn()
+def median_ms(fn, reps: int = 5, setup=None) -> float:
+    """Median device time of ``fn(setup())`` in ms (CUDA events, after a
+    warm-up); ``setup`` runs outside the timed window."""
+    setup = setup or (lambda: None)
+    fn(setup())
     times = []
     for _ in range(reps):
+        arg = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(arg)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
+def max_err(got, want) -> int:
+    """Max absolute difference of two tensors or lists of tensors."""
+    if isinstance(got, (list, tuple)):
+        return max(max_err(g, w) for g, w in zip(got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def exact(got, want, what: str) -> int:
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version, max abs err {err}")
+    return err
+
+
 def compare_pack(text: np.ndarray, remap: np.ndarray, bits: int, h0: int,
-                 n_real: int, timed: bool = False) -> dict:
+                 n_real: int, offset: int = 0, timed: bool = False) -> dict:
     t = torch.tensor(text, dtype=torch.uint8, device="cuda")
     r = torch.tensor(remap, dtype=torch.int32, device="cuda")
-    got = pack_ranks(t, r, bits, h0, n_real)
-    want = pack_ranks_reference(t, r, bits, h0, n_real)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    if err != 0:
-        raise AssertionError(f"pack kernel disagrees at n={len(text)} "
-                             f"bits={bits} h0={h0}: max abs err {err}")
-    out = {"n": len(text), "bits": bits, "h0": h0, "max_abs_err": err}
+    err = exact(pack_ranks(t, r, bits, h0, n_real, offset),
+                pack_ranks_reference(t, r, bits, h0, n_real, offset),
+                f"pack n={len(text)} bits={bits} h0={h0} offset={offset}")
+    out = {"max_abs_err": err}
     if timed:
-        out["ms"] = median_ms(lambda: pack_ranks(t, r, bits, h0, n_real))
+        out["ms"] = median_ms(
+            lambda _: pack_ranks(t, r, bits, h0, n_real, offset))
         out["plain_ms"] = median_ms(
-            lambda: pack_ranks_reference(t, r, bits, h0, n_real))
+            lambda _: pack_ranks_reference(t, r, bits, h0, n_real, offset))
     return out
 
 
-def check_corpus(name: str, text: np.ndarray) -> None:
+def keys_on_card(kind: str, n: int, seed: int) -> list[torch.Tensor]:
+    """(key, iota, second key) int32 columns: uniform 30-bit keys, or the
+    TestRadix skew (95% of keys 15 << 8)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    key = torch.randint(0, 1 << 30, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if kind == "skewed":
+        hot = torch.rand(n, generator=g, device="cuda") < 0.95
+        key = torch.where(hot, torch.full_like(key, 15 << 8), key)
+    other = torch.randint(0, 1 << 30, (n,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    return [key, torch.arange(n, dtype=torch.int32, device="cuda"), other]
+
+
+def compare_radix_pass(n: int, rbits: int, kind: str, timed: bool) -> dict:
+    """K2, the glue and K3 against their plain versions on one pass."""
+    cols = keys_on_card(kind, n, n + rbits)
+    shift = 8
+    staged, hist = block_digit_sort(cols, 0, shift, rbits)
+    want_staged, want_hist = block_digit_sort_reference(cols, 0, shift,
+                                                        rbits)
+    what = f"n={n} rbits={rbits} {kind}"
+    err2 = max(exact(staged, want_staged, "block_digit_sort " + what),
+               exact(hist, want_hist, "block_digit_sort hist " + what))
+    del want_staged, want_hist
+    offs = run_offsets(hist)
+    placed = place_runs(staged, 0, shift, rbits, *offs)
+    err3 = exact(placed, place_runs_reference(staged, 0, shift, rbits,
+                                              *offs),
+                 "place_runs " + what)
+    digits = (cols[0] >> shift) & ((1 << rbits) - 1)
+    order = torch.sort(digits, stable=True).indices
+    exact(placed, [c[order] for c in cols], "radix pass order " + what)
+    del digits, order, placed
+    out = {"k2_err": err2, "k3_err": err3}
+    if timed:
+        out["k2_ms"] = median_ms(
+            lambda _: block_digit_sort(cols, 0, shift, rbits, staged))
+        out["k2_plain_ms"] = median_ms(
+            lambda _: block_digit_sort_reference(cols, 0, shift, rbits))
+        dst = [torch.empty_like(c) for c in cols]
+        out["k3_ms"] = median_ms(
+            lambda _: place_runs(staged, 0, shift, rbits, *offs, out=dst))
+        out["k3_plain_ms"] = median_ms(
+            lambda _: place_runs_reference(staged, 0, shift, rbits, *offs,
+                                           out=dst))
+    return out
+
+
+def compare_sort(text: np.ndarray) -> dict:
+    """radix_sort_words on the 2^28 alnum key words (k0, k1) against its
+    plain version, and both beside torch.sort on the same 60-bit key."""
+    t = torch.tensor(text, dtype=torch.uint8, device="cuda")
+    remap, _, _ = alphabet_remap(text)
+    words = direct_keys(t, remap, 6, 5, 2, False)
+    idx = torch.arange(len(text), dtype=torch.int32, device="cuda")
+
+    def fresh():
+        return [w.clone() for w in words], idx.clone()
+
+    got = radix_sort_words(*fresh(), 30)
+    err = exact(got, radix_sort_words_reference(*fresh(), 30),
+                "radix_sort_words 2^28 alnum")
+    del got
+
+    def composite(_):
+        key = (words[0].long() << 30) | words[1].long()
+        return idx[torch.sort(key, stable=True).indices]
+
+    return {"max_abs_err": err,
+            "ms": median_ms(lambda a: radix_sort_words(*a, 30),
+                            setup=fresh),
+            "plain_ms": median_ms(
+                lambda a: radix_sort_words_reference(*a, 30), setup=fresh),
+            "torch_sort_ms": median_ms(composite)}
+
+
+def check_corpus(name: str, text: np.ndarray) -> dict:
     """SA, LCP, LRS and validator on the card against the host oracles."""
     t0 = time.perf_counter()
     info: dict = {}
-    sa = build_suffix_array(text, device="cuda", info=info)
-    lcp = build_lcp_array(text, sa, device="cuda", info=info)
-    lrs = find_longest_repeated_substring(text, sa, lcp, device="cuda")
-    valid = is_valid_suffix_array(text, sa, device="cuda")
+    text_dev = as_byte_tensor(text, "cuda")
+    sa = build_suffix_array(text, device="cuda", info=info,
+                            text_dev=text_dev)
+    lcp = build_lcp_array(text, sa, device="cuda", info=info,
+                          text_dev=text_dev)
+    lrs = find_longest_repeated_substring(text_dev, sa, lcp, device="cuda")
+    valid = is_valid_suffix_array(text_dev, sa, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    sa_h = sa.cpu().numpy()
     want_sa = native.sa_build(text)
-    if not np.array_equal(sa_h, want_sa):
+    if not np.array_equal(sa.cpu().numpy(), want_sa):
         raise AssertionError(f"{name}: SA differs from SA-IS")
     want_lcp = native.lcp_kasai(text, want_sa)
     if not np.array_equal(lcp.cpu().numpy(), want_lcp):
@@ -124,12 +246,50 @@ def check_corpus(name: str, text: np.ndarray) -> None:
         raise AssertionError(f"{name}: validator rejected the true SA")
     bad = sa.clone()
     bad[[10, 11]] = bad[[11, 10]]
-    if is_valid_suffix_array(text, bad, device="cuda"):
+    if is_valid_suffix_array(text_dev, bad, device="cuda"):
         raise AssertionError(f"{name}: validator accepted a swapped pair")
+    route = {k: info.get(k) for k in ("path", "lcp_path", "rerun",
+                                      "chain_mode", "n_words", "rounds",
+                                      "plcp_rounds", "declined")}
     phase(f"[4] {name} n={len(text)}: SA == SA-IS, LCP == Kasai, LRS "
           f"length {len(lrs or b'')} == oracle, validator True/False ok; "
-          f"rounds={info['rounds']} plcp_rounds={info['plcp_rounds']} "
-          f"device pipeline {dt:.3f} s")
+          f"route {json.dumps(route)}; device pipeline {dt:.3f} s")
+    return route
+
+
+def reset_launches() -> None:
+    pack_ranks.launches = 0
+    block_digit_sort.launches = 0
+    place_runs.launches = 0
+
+
+def launches() -> dict:
+    return {"pack_ranks": pack_ranks.launches,
+            "block_digit_sort": block_digit_sort.launches,
+            "place_runs": place_runs.launches}
+
+
+def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
+    """cli.run with validation on the direct route; returns (results,
+    launches, peak bytes). Fails if the route fell back to doubling."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_launches()
+    res = cli_run(text, name, "cuda", validate=True, dialect="sequential",
+                  out=buf, arrays=arrays)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    report = buf.getvalue()
+    if "Valid suffix array: YES" not in report:
+        raise AssertionError(f"{name} not validated:\n" + report)
+    if "PATH:direct" not in report or res.get("path") != "direct":
+        raise AssertionError(f"{name} did not take the direct route:\n"
+                             + report)
+    missing = [k for k, v in counts.items() if v < 1]
+    if missing:
+        raise AssertionError(f"{name}: main path launched no {missing}")
+    return res, counts, peak
 
 
 def main() -> int:
@@ -155,7 +315,7 @@ def main() -> int:
     phase(f"[2] build: {nvcc}, total {time.perf_counter() - t0:.2f} s; "
           f"ptxas: {' | '.join(ptxas) or 'n/a'}")
 
-    # 3) kernel vs plain
+    # 3) kernels vs plain
     rng = np.random.default_rng(SEED)
     for n, bits, h0 in SMALL_CASES:
         text = rng.integers(0, 256, n).astype(np.uint8)
@@ -165,56 +325,134 @@ def main() -> int:
     zero_tail = np.zeros(1024, np.uint8)
     zero_tail[:100] = rng.integers(1, 4, 100)
     compare_pack(zero_tail, np.arange(256, dtype=np.int32) % 4, 2, 15, 1024)
-    full = {}
-    for name, gen in (("random alnum", generate_random_text),
-                      ("DNA", generate_dna_text)):
-        text = gen(FULL_N, SEED)
+    n_word = 0
+    for bits, spw in WORD_CASES:
+        for n in WORD_SIZES:
+            text = rng.integers(0, 256, n).astype(np.uint8)
+            remap = rng.integers(1, 1 << bits, 256).astype(np.int32)
+            for table in (remap, np.maximum(remap - 1, 0)):   # minpad
+                for word in range(3):
+                    compare_pack(text, table, bits, spw, n, word * spw)
+                    n_word += 1
+    phase(f"[3] pack word mode: {n_word} cases exact (words 0-2, (bits, "
+          f"spw) {WORD_CASES}, n {WORD_SIZES}, with and without minpad)")
+    alnum = generate_random_text(FULL_N, SEED)
+    for name, text in (("random alnum", alnum),
+                       ("DNA", generate_dna_text(FULL_N, SEED))):
         remap, bits, h0 = alphabet_remap(text)
-        full[name] = compare_pack(text, remap, bits, h0, FULL_N, timed=True)
-        r = full[name]
+        r = compare_pack(text, remap, bits, h0, FULL_N, timed=True)
         phase(f"[3] pack {name} n=2^28 bits={bits} h0={h0}: exact; kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({card})")
+    remap, _, _ = alphabet_remap(alnum)
+    k1 = compare_pack(alnum, remap, 6, 5, FULL_N, offset=5, timed=True)
+    phase(f"[3] pack word 1 random alnum n=2^28 (bits 6, spw 5): exact; "
+          f"kernel {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms "
+          f"({card})")
+    radix_err = {"k2": 0, "k3": 0}
+    k23 = None
+    for n in (1 << 16, FULL_N):
+        for rbits in (4, 8):
+            for kind_ in ("uniform", "skewed"):
+                timed = n == FULL_N and rbits == 8 and kind_ == "uniform"
+                r = compare_radix_pass(n, rbits, kind_, timed)
+                radix_err["k2"] = max(radix_err["k2"], r["k2_err"])
+                radix_err["k3"] = max(radix_err["k3"], r["k3_err"])
+                if timed:
+                    k23 = r
+                torch.cuda.empty_cache()
+    phase("[3] K2 block_digit_sort + K3 place_runs: exact at rbits 4 and "
+          "8, n 2^16 and 2^28, uniform and skewed keys")
+    phase(f"[3] K2 n=2^28 rbits=8, 3 int32 columns: kernel "
+          f"{k23['k2_ms']:.3f} ms, plain {k23['k2_plain_ms']:.3f} ms; K3: "
+          f"kernel {k23['k3_ms']:.3f} ms, plain {k23['k3_plain_ms']:.3f} "
+          f"ms ({card})")
+    srt = compare_sort(alnum)
+    phase(f"[3] radix_sort_words n=2^28 alnum (k0, k1, idx), 8 passes: "
+          f"exact; kernel {srt['ms']:.3f} ms, plain (stable torch.sort per "
+          f"word) {srt['plain_ms']:.3f} ms, torch.sort of the 60-bit key "
+          f"{srt['torch_sort_ms']:.3f} ms ({card})")
     torch.cuda.empty_cache()
 
-    # 4) correctness at 2^24
-    for name, gen in (("random alnum", generate_random_text),
-                      ("DNA", generate_dna_text),
-                      ("repetitive p1000", generate_repetitive_text),
-                      ("words", generate_words_text)):
-        check_corpus(name, gen(CHECK_N, SEED))
-    torch.cuda.empty_cache()
+    # 4) correctness through the routers
+    for n in CHECK_SIZES:
+        for name, gen in CORPORA:
+            check_corpus(name, gen(n, SEED))
+        torch.cuda.empty_cache()
 
-    # 5) full size through the CLI's entry point
-    text = generate_random_text(FULL_N, SEED)
-    torch.cuda.reset_peak_memory_stats()
-    pack_ranks.launches = 0
-    buf = io.StringIO()
-    res = cli_run(text, "random_alnum_2^28", "cuda", validate=True,
-                  dialect="sequential", out=buf)
-    launches = pack_ranks.launches
-    peak = torch.cuda.max_memory_allocated()
-    report = buf.getvalue()
-    if "Valid suffix array: YES" not in report:
-        raise AssertionError("2^28 run not validated:\n" + report)
-    if launches < 1:
-        raise AssertionError("main path did not launch the pack kernel")
+    # 5) full size, main path: the direct route through the CLI
+    arrays: dict = {}
+    res, counts, peak = run_cli(alnum, "random_alnum_2^28", arrays)
     phase(f"[5] cli.run n=2^28 random alnum: Valid suffix array: YES; "
-          f"SA {res['sa_time']:.3f} s, LCP+LRS {res['lcp_time']:.3f} s, "
-          f"total {res['total_time']:.3f} s; rounds={res['rounds']} "
-          f"plcp_rounds={res['plcp_rounds']}; peak "
-          f"{peak / 2**30:.2f} GiB; pack launches {launches} ({card})")
+          f"PATH:{res['path']} n_words={res.get('n_words')} chain_mode="
+          f"{res.get('chain_mode')} rerun={res.get('rerun')}; SA "
+          f"{res['sa_time']:.3f} s, LCP+LRS {res['lcp_time']:.3f} s, "
+          f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(counts)} ({card})")
+    main_counts = counts
+    # The doubling route and PLCP on the same text: an independent device
+    # route, held byte for byte against the CLI's SA and LCP.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text_dev = as_byte_tensor(alnum, "cuda")
+    info: dict = {}
+    sa = build_suffix_array_doubling(text_dev, device="cuda", info=info)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plcp, plcp_rounds = plcp_kernel(text_dev, sa)
+    lcp = lcp_from_plcp(plcp, sa)
+    del plcp
+    find_longest_repeated_substring(text_dev, sa, lcp, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    d_peak = torch.cuda.max_memory_allocated()
+    if pack_ranks.launches < 1:
+        raise AssertionError("doubling route launched no pack kernel")
+    if not (torch.equal(sa, arrays["sa"]) and
+            torch.equal(lcp, arrays["lcp"])):
+        raise AssertionError("2^28 direct and doubling+PLCP routes differ")
+    phase(f"[5] doubling + PLCP n=2^28 random alnum: SA and LCP == the "
+          f"direct route's, byte for byte; rounds={info['rounds']} "
+          f"plcp_rounds={plcp_rounds}; SA {t1 - t0:.3f} s, LCP+LRS "
+          f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak "
+          f"{d_peak / 2**30:.2f} GiB; pack launches {pack_ranks.launches} "
+          f"({card})")
+    del sa, lcp, text_dev, arrays
 
-    main_shape = full["random alnum"]
-    print(json.dumps({"kernels": [{
-        "name": "pack_ranks",
-        "route": "cuda",
-        "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
-        "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}))
+    # 6) periodic text through the CLI: chain mode on the direct route
+    res, counts, peak = run_cli(generate_repetitive_text(FULL_N, SEED),
+                                "repetitive_p1000_2^28")
+    if not res.get("chain_mode"):
+        raise AssertionError("p1000 at 2^28 did not run in chain mode")
+    phase(f"[6] cli.run n=2^28 p1000: Valid suffix array: YES; "
+          f"PATH:{res['path']} chain_mode={res['chain_mode']} n_words="
+          f"{res.get('n_words')} rerun={res.get('rerun')}; SA "
+          f"{res['sa_time']:.3f} s, LCP+LRS {res['lcp_time']:.3f} s, "
+          f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(counts)} ({card})")
+
+    print(json.dumps({"kernels": [
+        {"name": "pack_ranks", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
+         "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
+         "launches": main_counts["pack_ranks"],
+         "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "block_digit_sort", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
+         "replaces": "experiments/radix_write.py:213",
+         "launches": main_counts["block_digit_sort"],
+         "max_abs_err": radix_err["k2"],
+         "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
+        {"name": "place_runs", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
+         "replaces": "experiments/radix_write.py:318",
+         "launches": main_counts["place_runs"],
+         "max_abs_err": radix_err["k3"],
+         "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

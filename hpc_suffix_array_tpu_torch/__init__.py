@@ -1,14 +1,17 @@
 """PyTorch/CUDA port of the suffix-array framework (single device).
 
 The counterpart of ``hpc_suffix_array_tpu`` on an NVIDIA Hopper card:
-prefix-doubling suffix array, PLCP LCP array, longest repeated
-substring and the O(n) validator, with the packed-initial-rank fold as a
-hand-written CUDA kernel (``csrc/pack.cu``). Every public function takes
-an explicit ``device``; a CUDA device that is missing raises. This
-package imports neither jax nor the JAX package.
+the prefix-doubling builder (texts up to 4 MiB, and the fallback), the
+direct carried-keys SA+LCP builder (above 4 MiB), PLCP LCP array,
+longest repeated substring and the O(n) validator. Hand-written CUDA
+kernels carry the key folds (``csrc/pack.cu``) and the carried-keys
+radix sort (``csrc/radix.cu``). Every public function takes an explicit
+``device``; a CUDA device that is missing raises. This package imports
+neither jax nor the JAX package.
 """
 
-from hpc_suffix_array_tpu_torch.core.lcp import build_lcp_array
+from hpc_suffix_array_tpu_torch.core.bigsort import build_suffix_array_direct
+from hpc_suffix_array_tpu_torch.core.lcp import build_lcp_array, build_sa_lcp
 from hpc_suffix_array_tpu_torch.core.lrs import find_longest_repeated_substring
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     SuffixArray, build_suffix_array)
@@ -19,7 +22,9 @@ __version__ = "0.1.0"
 __all__ = [
     "SuffixArray",
     "build_suffix_array",
+    "build_suffix_array_direct",
     "build_lcp_array",
+    "build_sa_lcp",
     "find_longest_repeated_substring",
     "is_valid_suffix_array",
     "__version__",

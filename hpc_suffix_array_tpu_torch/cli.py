@@ -8,8 +8,13 @@ Counterpart of the single-device flow of ``hpc_suffix_array_tpu/cli.py``:
   * the human report (validity, LRS, per-phase times) and the n <= 100
     detail dump;
   * both STRUCTURED_RESULTS dialects (`===STRUCTURED_RESULTS===` and
-    `--- STRUCTURED_RESULTS ---`), and a FAILED block with a nonzero exit
-    when a build fails.
+    `--- STRUCTURED_RESULTS ---`), with PATH (the builder that served
+    the request) and RERUN (a carried-keys build that re-ran in the
+    other chain direction), and a FAILED block with a nonzero exit when
+    a build fails;
+  * above ``SA_LCP_BIG_MIN`` (8 MiB) one fused carried-keys SA+LCP build
+    (``core/lcp.py::build_sa_lcp``), timed as the SA phase, as in the
+    JAX CLI.
 
 ``--device`` defaults to ``cuda`` and raises when CUDA is unavailable;
 ``--device cpu`` runs the same path on the CPU. IMPLEMENTATION reads
@@ -51,12 +56,15 @@ def _preview(data) -> str:
 
 
 def run(text: np.ndarray, filename: str, device, validate: bool,
-        dialect: str, out=None) -> dict:
+        dialect: str, out=None, arrays: dict | None = None) -> dict:
     """Build SA + LCP + LRS with per-phase timing; print the full report.
 
     Returns the structured-results dict (also printed as text blocks),
-    with the doubling and PLCP round counts besides."""
-    from hpc_suffix_array_tpu_torch.core.lcp import build_lcp_array
+    with the doubling and PLCP round counts, and the carried-keys
+    build's chain mode and word count where it ran. ``arrays``: optional
+    dict that receives the ``sa`` and ``lcp`` tensors."""
+    from hpc_suffix_array_tpu_torch.core.lcp import (
+        build_lcp_array, build_sa_lcp, lcp_big_min)
     from hpc_suffix_array_tpu_torch.core.lrs import (
         find_longest_repeated_substring)
     from hpc_suffix_array_tpu_torch.core.suffix_array import (
@@ -70,12 +78,24 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
 
     synchronize(dev)
     t0 = time.perf_counter()
-    # The text is staged once, inside the SA phase as in the JAX CLI.
+    # The text is staged once, inside the SA phase as in the JAX CLI;
+    # the routers plan on the host bytes.
     text_dev = as_byte_tensor(text, dev)
-    sa = build_suffix_array(text_dev, device=dev, info=info)
+    combined = None
+    if n > lcp_big_min():
+        # One carried-keys pass gives SA and LCP together; if it falls
+        # back to doubling and PLCP, both land in the SA phase too.
+        combined = build_sa_lcp(text, device=dev, info=info,
+                                text_dev=text_dev)
+        sa = combined[0]
+    else:
+        sa = build_suffix_array(text, device=dev, info=info,
+                                text_dev=text_dev)
     synchronize(dev)
     t1 = time.perf_counter()
-    lcp = build_lcp_array(text_dev, sa, device=dev, info=info)
+    lcp = (combined[1] if combined is not None else
+           build_lcp_array(text, sa, device=dev, info=info,
+                           text_dev=text_dev))
     lrs = find_longest_repeated_substring(text_dev, sa, lcp, device=dev)
     synchronize(dev)
     t2 = time.perf_counter()
@@ -114,8 +134,14 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
         "rounds": info.get("rounds", 0),
         "plcp_rounds": info.get("plcp_rounds", 0),
     }
-    if info.get("path"):
-        results["path"] = info["path"]
+    for key in ("path", "chain_mode", "n_words"):
+        if key in info:
+            results[key] = info[key]
+    if info.get("rerun"):
+        # The reported SA_TIME includes the re-run build.
+        results["rerun"] = ",".join(info["rerun"])
+    if arrays is not None:
+        arrays.update(sa=sa, lcp=lcp)
     _print_structured(results, dialect, out)
     return results
 
@@ -146,6 +172,8 @@ def _print_structured(r: dict, dialect: str, out) -> None:
         print(f"PROCESSES:{r['processes']}", file=out)
         if r.get("path"):
             print(f"PATH:{r['path']}", file=out)
+        if r.get("rerun"):
+            print(f"RERUN:{r['rerun']}", file=out)
         print("===END_RESULTS===\n", file=out)
     if dialect in ("mpi", "both"):
         print("\n--- STRUCTURED_RESULTS ---", file=out)
@@ -154,6 +182,8 @@ def _print_structured(r: dict, dialect: str, out) -> None:
         print(f"SA_TIME:{r['sa_time']:.6f}", file=out)
         print(f"LCP_TIME:{r['lcp_time']:.6f}", file=out)
         print(f"TOTAL_TIME:{r['total_time']:.6f}", file=out)
+        if r.get("rerun"):
+            print(f"RERUN:{r['rerun']}", file=out)
         print("--- END_STRUCTURED_RESULTS ---", file=out)
 
 

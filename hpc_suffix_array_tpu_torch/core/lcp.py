@@ -13,16 +13,26 @@ lower bound, improved each round by three steps:
      ``CMP_WIDTH`` bytes of its suffix and its SA predecessor's.
 
 The loop is host-driven (one ``resolved.all()`` sync per round), as in
-the JAX package. ``build_lcp_array`` takes this route at every n; the
-JAX package's window, sorted-fetch and carried-keys LCP routes are not
-ported yet.
+the JAX package.
+
+The carried-keys routes (``_sa_lcp_big``, ``build_sa_lcp``) take the LCP
+from the direct builder's sorted keys (``core/bigsort.py``, ``want_lcp``):
+``build_lcp_array`` uses them above ``SA_LCP_BIG_MIN`` and for texts of
+deep repeats between ``SA_LCP_CHAIN_MIN`` and ``SA_LCP_WINDOW_MIN``, and
+PLCP otherwise. The JAX package's window and sorted-fetch routes are not
+ported: where it would take them, the port keeps PLCP.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
-from hpc_suffix_array_tpu_torch.core.suffix_array import as_byte_tensor
+from hpc_suffix_array_tpu_torch.core.suffix_array import (
+    alphabet_remap_dev, as_byte_array, build_suffix_array,
+    build_suffix_array_doubling, device_text)
 from hpc_suffix_array_tpu_torch.device import resolve_device
 
 # Bytes compared per unresolved position per round.
@@ -34,6 +44,32 @@ CMP_WIDTH = 32
 CHUNK = 1 << 22
 # Pointer-jumping steps per round (each approximately doubles verified runs).
 JUMP_STEPS = 2
+
+
+# Route thresholds of the JAX package (bytes; set on a TPU), read from
+# the same environment names.
+def lcp_big_min() -> int:
+    """Above this (``SA_LCP_BIG_MIN``, 8 MiB): the fused carried-keys
+    SA+LCP build."""
+    return int(os.environ.get("SA_LCP_BIG_MIN", 1 << 23))
+
+
+def lcp_window_min() -> int:
+    """Above this (``SA_LCP_WINDOW_MIN``, 4 MiB) the JAX package takes
+    its window route, which the port replaces by PLCP."""
+    return int(os.environ.get("SA_LCP_WINDOW_MIN", 1 << 22))
+
+
+def lcp_chain_min() -> int:
+    """From this size (``SA_LCP_CHAIN_MIN``, 16 KiB) deep-repeat texts
+    take the carried-keys build."""
+    return int(os.environ.get("SA_LCP_CHAIN_MIN", 1 << 14))
+
+
+def lcp_chain_est() -> int:
+    """Repeat estimate (``SA_LCP_CHAIN_EST``, 512 bytes) beyond which a
+    text counts as deep-repeat."""
+    return int(os.environ.get("SA_LCP_CHAIN_EST", 512))
 
 
 def _plcp_setup(sa: torch.Tensor):
@@ -124,20 +160,116 @@ def lcp_from_plcp(plcp: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
     return lcp
 
 
-def build_lcp_array(text, sa, *, device, info: dict | None = None
-                    ) -> torch.Tensor:
+def _sa_lcp_big(text, n: int, *, device, text_dev=None,
+                info: dict | None = None):
+    """(sa, lcp) from the direct carried-keys build, or None when it is
+    infeasible or declines (the caller then takes doubling and PLCP).
+
+    ``text``: the host bytes (planning); ``text_dev``: their device copy,
+    whose alphabet is counted on the device. ``info`` receives the
+    build's keys and ``path`` = "direct", or ``declined``."""
+    from hpc_suffix_array_tpu_torch.core import bigsort
+
+    host = as_byte_array(text)
+    t = device_text(host, device, text_dev)
+    remap, _, _ = alphabet_remap_dev(t)
+    est = bigsort.estimate_repeat_len(host)
+    if not bigsort.direct_feasible(host, n, est_repeat=est,
+                                   sigma=int(remap.max())):
+        return None
+    try:
+        out = bigsort.build_suffix_array_direct(
+            host, device=t.device, want_lcp=True, text_dev=t, remap=remap,
+            est_repeat=est, info=info)
+    except NotImplementedError as e:
+        if info is not None:
+            info["declined"] = str(e)
+        return None
+    if info is not None:
+        info["path"] = "direct"
+    return out
+
+
+def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
+              info: dict | None) -> torch.Tensor:
+    plcp, rounds = plcp_kernel(t, sa)
+    if info is not None:
+        info["plcp_rounds"] = rounds
+    return lcp_from_plcp(plcp, sa)
+
+
+def build_sa_lcp(text, *, device, info: dict | None = None,
+                 text_dev: torch.Tensor | None = None):
+    """Fused (suffix array, LCP array) build, int32[n] each.
+
+    Above ``SA_LCP_BIG_MIN`` this is one carried-keys pass; when that
+    declines, the doubling builder and PLCP run directly (no second
+    carried-keys attempt). Below it, ``build_suffix_array`` and
+    ``build_lcp_array`` run back to back. ``text_dev`` and ``info`` as
+    in ``build_suffix_array``."""
+    dev = resolve_device(device)
+    t = device_text(text, dev, text_dev)
+    n = t.shape[0]
+    if n > lcp_big_min():
+        derived = _sa_lcp_big(text, n, device=dev, text_dev=t, info=info)
+        if derived is not None:
+            return derived
+        sa = build_suffix_array_doubling(t, device=dev, info=info)
+        return sa, _plcp_lcp(t, sa, info)
+    sa = build_suffix_array(text, device=dev, info=info, text_dev=t)
+    return sa, build_lcp_array(text, sa, device=dev, info=info, text_dev=t)
+
+
+def _deep_repeat(arr: np.ndarray) -> bool:
+    """Longest-repeat estimate beyond what the PLCP rounds absorb
+    cheaply (``SA_LCP_CHAIN_EST``)."""
+    from hpc_suffix_array_tpu_torch.core.bigsort import estimate_repeat_len
+
+    return estimate_repeat_len(arr) > lcp_chain_est()
+
+
+def build_lcp_array(text, sa, *, device, info: dict | None = None,
+                    text_dev: torch.Tensor | None = None) -> torch.Tensor:
     """LCP array int32[n]: lcp[j] = LCP(suffix sa[j-1], suffix sa[j]),
     lcp[0] = 0, built on ``device``. ``sa`` must be the suffix array of
-    ``text``. ``info``: optional dict that receives ``plcp_rounds``."""
+    ``text``.
+
+    Above ``SA_LCP_BIG_MIN``, and for deep-repeat texts from
+    ``SA_LCP_CHAIN_MIN`` to ``SA_LCP_WINDOW_MIN``, the LCP comes from the
+    direct carried-keys build, which derives the order from the text
+    itself: the supplied ``sa`` is then checked against the derived one,
+    and a mismatch raises ValueError. Otherwise, and when that build
+    declines, PLCP. ``text_dev`` as in ``build_suffix_array``.
+    ``info``: optional dict that receives ``lcp_path`` ("direct" or
+    "plcp") and, for PLCP, ``plcp_rounds``."""
     dev = resolve_device(device)
-    t = as_byte_tensor(text, dev)
+    t = device_text(text, dev, text_dev)
     n = t.shape[0]
     sa = torch.as_tensor(sa).to(device=dev, dtype=torch.int32)
     if sa.shape[0] != n:
         raise ValueError(f"sa length {sa.shape[0]} != text length {n}")
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
-    plcp, rounds = plcp_kernel(t, sa)
+    derived, what = None, ""
+    if n > lcp_big_min():
+        derived = _sa_lcp_big(text, n, device=dev, text_dev=t)
+        what = "large-text"
+    elif lcp_chain_min() <= n <= lcp_window_min():
+        host = as_byte_array(text)
+        if _deep_repeat(host):
+            derived = _sa_lcp_big(host, n, device=dev, text_dev=t)
+            what = "repetitive-text"
+    if derived is not None:
+        derived_sa, lcp = derived
+        if not torch.equal(derived_sa, sa):
+            raise ValueError(
+                f"supplied sa is not the suffix array of text: the {what} "
+                "LCP route derives the order from the text (carried-keys "
+                "build) and cross-checks `sa`; pass the true SA or call "
+                "build_sa_lcp(text)")
+        if info is not None:
+            info["lcp_path"] = "direct"
+        return lcp
     if info is not None:
-        info["plcp_rounds"] = rounds
-    return lcp_from_plcp(plcp, sa)
+        info["lcp_path"] = "plcp"
+    return _plcp_lcp(t, sa, info)

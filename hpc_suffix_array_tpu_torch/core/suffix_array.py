@@ -12,14 +12,19 @@ Differences from the JAX version:
     per round (the converged test);
   * no padding to a bucketed length: that existed for XLA's compile
     cache. Pad positions add rounds, so ``rounds`` is comparable only
-    against the JAX kernel fed the same unpadded initial ranks;
-  * one route, the doubling loop, at every n. The JAX package sends
-    texts above 4 MiB to its carried-keys builders, which give the same
-    suffix array; those are not ported yet.
+    against the JAX kernel fed the same unpadded initial ranks.
+
+``build_suffix_array`` routes as the JAX package's does above
+``SA_BIG_THRESHOLD`` (4 MiB): to the direct carried-keys builder
+(``core/bigsort.py``) when ``direct_feasible`` holds, and to the
+doubling builder (``build_suffix_array_doubling``) otherwise or when the
+direct builder declines. The JAX package's MSD builder and its
+direct-vs-MSD crossover (``prefer_direct``) are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,6 +43,12 @@ PACK_BITS = 30
 # Text bytes per bincount call in the device presence pass: bounds the
 # int64 temporary (8 B per byte) to 128 MiB.
 PRESENCE_CHUNK = 1 << 24
+
+
+def big_threshold() -> int:
+    """Texts above this many bytes (``SA_BIG_THRESHOLD``, 4 MiB, a
+    threshold set on a TPU) try the carried-keys builder first."""
+    return int(os.environ.get("SA_BIG_THRESHOLD", 1 << 22))
 
 
 def as_byte_array(text) -> np.ndarray:
@@ -62,6 +73,20 @@ def as_byte_tensor(text, device) -> torch.Tensor:
         return text.to(device=dev, dtype=torch.uint8).contiguous()
     # torch.tensor copies, so read-only inputs (bytes, memmaps) are fine.
     return torch.tensor(as_byte_array(text), dtype=torch.uint8, device=dev)
+
+
+def device_text(text, device, text_dev=None) -> torch.Tensor:
+    """uint8[n] copy of ``text`` on ``device``: the first n bytes of
+    ``text_dev`` when that is a uint8 tensor on the device holding at
+    least n bytes (the caller's promise: the same bytes), else staged."""
+    dev = resolve_device(device)
+    n = (int(text.shape[0]) if isinstance(text, torch.Tensor)
+         else len(as_byte_array(text)))
+    if (isinstance(text_dev, torch.Tensor) and text_dev.dtype == torch.uint8
+            and text_dev.device.type == dev.type
+            and text_dev.shape[0] >= n):
+        return text_dev[:n]
+    return as_byte_tensor(text, dev)
 
 
 def _doubling_round(rank: torch.Tensor, k: int):
@@ -135,10 +160,9 @@ def pack_ranks_kernel(text: torch.Tensor, remap: np.ndarray, bits: int,
     return pack_ranks(text, remap_t, bits, h0, n_real)
 
 
-def build_suffix_array(text, *, device, info: dict | None = None
-                       ) -> torch.Tensor:
-    """Suffix array int32[n] of ``text`` (str, bytes, uint8 array or
-    tensor), built on ``device``.
+def build_suffix_array_doubling(text, *, device, info: dict | None = None
+                                ) -> torch.Tensor:
+    """Suffix array int32[n] by prefix doubling, at any n.
 
     ``info``: optional dict that receives ``path`` ("doubling") and
     ``rounds`` (doubling rounds run)."""
@@ -153,6 +177,45 @@ def build_suffix_array(text, *, device, info: dict | None = None
         info["path"] = "doubling"
         info["rounds"] = rounds
     return sa
+
+
+def build_suffix_array(text, *, device, info: dict | None = None,
+                       text_dev: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Suffix array int32[n] of ``text`` (str, bytes, uint8 array or
+    tensor), built on ``device``.
+
+    ``text_dev``: optional uint8 copy of the same bytes on ``device``
+    (see ``device_text``). Above ``SA_BIG_THRESHOLD`` the router plans
+    on the host bytes, so pass ``text`` as a host array and the device
+    copy here: a device tensor as ``text`` costs a copy to the host.
+
+    ``info``: optional dict that receives ``path`` ("direct" or
+    "doubling"), the direct build's keys (``rerun``, ``chain_mode``,
+    ``n_patched``, ``periods``, ``n_words``), ``declined`` (why the
+    direct builder fell back to doubling) or ``rounds``."""
+    t = device_text(text, device, text_dev)
+    n = t.shape[0]
+    if n > big_threshold():
+        from hpc_suffix_array_tpu_torch.core import bigsort
+
+        arr = as_byte_array(text)
+        # One alphabet and repeat scan feeds the gate and the builder.
+        remap, _, _ = alphabet_remap_dev(t)
+        est = bigsort.estimate_repeat_len(arr)
+        if bigsort.direct_feasible(arr, n, est_repeat=est,
+                                   sigma=int(remap.max())):
+            try:
+                sa = bigsort.build_suffix_array_direct(
+                    arr, device=t.device, info=info, text_dev=t,
+                    remap=remap, est_repeat=est)
+                if info is not None:
+                    info["path"] = "direct"
+                return sa
+            except NotImplementedError as e:
+                if info is not None:
+                    info["declined"] = str(e)
+    return build_suffix_array_doubling(t, device=t.device, info=info)
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper)
-into one shared library with a plain C interface under the repository's
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper),
+one process per source, all started together, and link into one shared
+library with a plain C interface under the repository's
 ``build/kernels/`` directory, keyed by a hash of the sources, at first
 use. The library is loaded with ctypes: no source includes PyTorch's
 headers, so a build takes seconds rather than minutes. Pointers and the
@@ -28,7 +29,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 # Seconds the last build in this process took (0.0 when the library
@@ -68,23 +69,47 @@ def load() -> ctypes.CDLL:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
             tmp = pathlib.Path(td) / so.name
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in srcs if p.suffix == ".cu"]]
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in (p for p in srcs if p.suffix == ".cu"):
+                obj = pathlib.Path(td) / (src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+                objs.append(str(obj))
+            # Wait for every compile before judging any, so no nvcc is
+            # left running behind a raise.
+            logs = [proc.communicate(timeout=600)[0] for _, proc in procs]
+            for (cmd, proc), out in zip(procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({' '.join(cmd)}):\n{out}")
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *objs]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=600)
-            build_log = proc.stdout + proc.stderr
+            build_log = "".join(logs) + proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
+                    f"nvcc link failed ({' '.join(cmd)}):\n{build_log}")
             tmp.replace(so)
         build_seconds = time.perf_counter() - t0
         so.with_suffix(".log").write_text(build_log)
     lib = ctypes.CDLL(str(so))
     lib.sa_pack_ranks.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.sa_pack_ranks.restype = ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cols = [ptr] * 8 + [i32, i32, i64, i32, i32]
+    lib.sa_block_digit_sort.argtypes = cols + [ptr, ptr]
+    lib.sa_block_digit_sort.restype = ctypes.c_int
+    lib.sa_place_runs.argtypes = cols + [ptr, ptr, ptr]
+    lib.sa_place_runs.restype = ctypes.c_int
+    lib.sa_radix_block_elems.argtypes = []
+    lib.sa_radix_block_elems.restype = ctypes.c_int
     lib.sa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

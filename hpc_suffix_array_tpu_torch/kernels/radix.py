@@ -1,0 +1,244 @@
+"""Stable LSD radix sort: the hand-written kernels and their plain versions.
+
+One pass = K2 ``block_digit_sort`` + ``run_offsets`` + K3 ``place_runs``,
+the port of ``experiments/radix_write.py::radix_pass_dma`` (Pallas
+``block_digit_sort`` and ``place_runs``, with XLA scans between them).
+K2 stable-sorts every block of ``BLOCK`` elements by the ``rbits``-bit
+digit of the key column at ``shift`` and emits the per-block digit
+histogram; ``run_offsets`` scans it into each (block, digit) run's
+global and block-local start (plain PyTorch, as XLA was); K3 copies each
+run to its global place. ``radix_sort_words`` chains passes over the
+live bits of 1-3 int32 key words, least significant first, carrying
+every word and an int32 payload.
+
+A pass carries up to four int32 columns; digits are read from the key as
+uint32, so keys order as unsigned integers. ``rbits`` 4 is the TPU
+version's digit (the parity test); the builder uses ``RBITS = 8``.
+
+Each wrapper launches ``csrc/radix.cu`` for CUDA tensors and adds one to
+its ``launches``; for CPU tensors it runs its ``*_reference``. There is
+no fallback between the two: a CUDA call launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hpc_suffix_array_tpu_torch.kernels import _build
+
+BLOCK = 4096          # elements per K2/K3 block (csrc/radix.cu kBlock)
+MAX_COLS = 4          # columns one pass carries (3 key words + payload)
+RBITS = 8             # digit width of the builder's sort
+
+
+def _check(cols, key_col: int, shift: int, rbits: int) -> None:
+    if not 1 <= len(cols) <= MAX_COLS:
+        raise ValueError(f"need 1..{MAX_COLS} columns, got {len(cols)}")
+    if not 0 <= key_col < len(cols):
+        raise ValueError(f"key_col={key_col} outside [0, {len(cols)})")
+    n, dev = cols[0].shape[0], cols[0].device
+    for c in cols:
+        if c.dtype != torch.int32 or c.dim() != 1 or c.shape[0] != n:
+            raise TypeError(f"columns must be int32[{n}], got {c.dtype} "
+                            f"{tuple(c.shape)}")
+        if c.device != dev or not c.is_contiguous():
+            raise ValueError("columns must be contiguous and on one device")
+    if n >= 1 << 31:
+        raise ValueError(f"n={n} needs int64 offsets; at most 2^31-1")
+    if not 1 <= rbits <= 8 or not 0 <= shift < 32:
+        raise ValueError(f"need 1 <= rbits <= 8 and 0 <= shift < 32; got "
+                         f"rbits={rbits}, shift={shift}")
+
+
+def _device_kind(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _digits(key: torch.Tensor, shift: int, rbits: int) -> torch.Tensor:
+    """int64 digit of each key read as uint32."""
+    return ((key.long() & 0xFFFFFFFF) >> shift) & ((1 << rbits) - 1)
+
+
+def n_blocks(n: int) -> int:
+    return -(-n // BLOCK)
+
+
+def block_digit_sort_reference(cols, key_col: int, shift: int, rbits: int):
+    """Plain K2: per-block stable ``argsort`` of the digit plus
+    ``bincount``. Returns (block-sorted columns, hist int32[nb, 2^rbits])."""
+    _check(cols, key_col, shift, rbits)
+    n, dev = cols[0].shape[0], cols[0].device
+    radix, nb = 1 << rbits, n_blocks(n)
+    dig = _digits(cols[key_col], shift, rbits)
+    padded = torch.full((nb * BLOCK,), radix, dtype=torch.int64, device=dev)
+    padded[:n] = dig
+    order = torch.sort(padded.view(nb, BLOCK), dim=1, stable=True).indices
+    order += torch.arange(nb, device=dev)[:, None] * BLOCK
+    order = order.view(-1)[:n]      # the pads sort last in the last block
+    block = torch.arange(n, device=dev) // BLOCK
+    hist = torch.bincount(block * radix + dig, minlength=nb * radix)
+    return ([c[order] for c in cols],
+            hist.view(nb, radix).to(torch.int32))
+
+
+def run_offsets(hist: torch.Tensor):
+    """(run_dst, run_src) int32[nb, R] from K2's histogram: the global
+    start of each (block, digit) run in digit-major order, and its start
+    inside the block (``radix_pass_dma``'s scans, radix_write.py:371-379).
+
+    The global starts are one exclusive scan of the histogram read
+    digit-major: a cumsum along dim 0 of the [nb, R] table runs as R
+    serial column scans on the card (on an H100, 24.0 ms against 0.57 ms
+    per pass for the [65536, 256] table of a 2^28 sort)."""
+    radix = hist.shape[1]
+    flat = hist.t().contiguous().view(-1)           # digit-major (d, b)
+    run_dst = torch.cumsum(flat, 0, dtype=torch.int32) - flat
+    run_dst = run_dst.view(radix, -1).t().contiguous()
+    run_src = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+    return run_dst, run_src
+
+
+def place_runs_reference(staged, key_col: int, shift: int, rbits: int,
+                         run_dst: torch.Tensor, run_src: torch.Tensor,
+                         out=None):
+    """Plain K3: an index copy of each staged element to
+    ``run_dst[b, d] + j - run_src[b, d]``."""
+    _check(staged, key_col, shift, rbits)
+    n, dev = staged[0].shape[0], staged[0].device
+    j = torch.arange(n, device=dev)
+    flat = (j // BLOCK) * (1 << rbits) + _digits(staged[key_col], shift,
+                                                 rbits)
+    to = (run_dst.view(-1)[flat].long() - run_src.view(-1)[flat].long()
+          + j % BLOCK)
+    out = [torch.empty_like(c) for c in staged] if out is None else out
+    for o, c in zip(out, staged):
+        o[to] = c
+    return out
+
+
+def _ptrs(cols):
+    return [c.data_ptr() for c in cols] + [None] * (MAX_COLS - len(cols))
+
+
+def _launch_cols(cols, out):
+    lib = _build.load()
+    if lib.sa_radix_block_elems() != BLOCK:
+        raise RuntimeError("csrc/radix.cu kBlock differs from radix.BLOCK")
+    return lib, _ptrs(cols) + _ptrs(out)
+
+
+def block_digit_sort(cols, key_col: int, shift: int, rbits: int, out=None):
+    """K2 (see module doc). ``out``: optional staging columns to write."""
+    _check(cols, key_col, shift, rbits)
+    if _device_kind(cols[0], "block_digit_sort") == "cpu":
+        staged, hist = block_digit_sort_reference(cols, key_col, shift,
+                                                  rbits)
+        if out is None:
+            return staged, hist
+        for o, s in zip(out, staged):
+            o.copy_(s)
+        return out, hist
+    n, dev = cols[0].shape[0], cols[0].device
+    out = [torch.empty_like(c) for c in cols] if out is None else out
+    hist = torch.empty((n_blocks(n), 1 << rbits), dtype=torch.int32,
+                       device=dev)
+    if n == 0:
+        return out, hist
+    lib, ptrs = _launch_cols(cols, out)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_block_digit_sort(*ptrs, len(cols), key_col, n, shift,
+                                      rbits, hist.data_ptr(), stream)
+    _build.check(err, "sa_block_digit_sort")
+    block_digit_sort.launches += 1
+    return out, hist
+
+
+block_digit_sort.launches = 0
+
+
+def place_runs(staged, key_col: int, shift: int, rbits: int,
+               run_dst: torch.Tensor, run_src: torch.Tensor, out=None):
+    """K3 (see module doc). ``out``: optional columns to write into."""
+    _check(staged, key_col, shift, rbits)
+    if _device_kind(staged[0], "place_runs") == "cpu":
+        return place_runs_reference(staged, key_col, shift, rbits, run_dst,
+                                    run_src, out)
+    n = staged[0].shape[0]
+    shape = (n_blocks(n), 1 << rbits)
+    for t in (run_dst, run_src):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != staged[0].device or not t.is_contiguous()):
+            raise TypeError(f"run offsets must be contiguous int32{shape} "
+                            f"on {staged[0].device}")
+    out = [torch.empty_like(c) for c in staged] if out is None else out
+    if n == 0:
+        return out
+    lib, ptrs = _launch_cols(staged, out)
+    with torch.cuda.device(staged[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_place_runs(*ptrs, len(staged), key_col, n, shift, rbits,
+                                run_dst.data_ptr(), run_src.data_ptr(),
+                                stream)
+    _build.check(err, "sa_place_runs")
+    place_runs.launches += 1
+    return out
+
+
+place_runs.launches = 0
+
+
+def radix_pass(cols, key_col: int, shift: int, rbits: int, staging=None):
+    """One stable pass, in place: ``cols`` come back partitioned by the
+    digit (K2 into ``staging``, K3 back into ``cols``)."""
+    staged, hist = block_digit_sort(cols, key_col, shift, rbits, staging)
+    run_dst, run_src = run_offsets(hist)
+    return place_runs(staged, key_col, shift, rbits, run_dst, run_src,
+                      out=cols)
+
+
+def _check_words(words, payload, live_bits: int):
+    if not 1 <= len(words) <= MAX_COLS - 1:
+        raise ValueError(f"need 1..{MAX_COLS - 1} key words, got "
+                         f"{len(words)}")
+    if not 1 <= live_bits <= 32:
+        raise ValueError(f"live_bits={live_bits} outside [1, 32]")
+    _check(list(words) + [payload], 0, 0, 1)
+
+
+def radix_sort_words_reference(words, payload, live_bits: int):
+    """Plain sort: stable ``torch.sort`` per word, least significant
+    first, on the live bits. In place, like ``radix_sort_words``."""
+    _check_words(words, payload, live_bits)
+    mask = (1 << live_bits) - 1
+    perm = torch.arange(payload.shape[0], device=payload.device)
+    for w in reversed(words):
+        key = (w.long() & 0xFFFFFFFF & mask)[perm]
+        perm = perm[torch.sort(key, stable=True).indices]
+    for c in list(words) + [payload]:
+        c.copy_(c[perm])
+    return list(words), payload
+
+
+def radix_sort_words(words, payload, live_bits: int, rbits: int = RBITS):
+    """Stable sort of ``payload`` (int32[n]) by the key words (1-3
+    int32[n], most significant first), on the low ``live_bits`` bits of
+    each word, read as unsigned.
+
+    Sorts IN PLACE: the inputs are one of the two buffer sets the passes
+    ping-pong between, so the sort needs one staging set on top.
+    Returns (words, payload), sorted. On CUDA tensors it runs
+    ceil(live_bits / rbits) K2+K3 passes per word; on CPU tensors
+    ``radix_sort_words_reference``."""
+    _check_words(words, payload, live_bits)
+    if _device_kind(payload, "radix_sort_words") == "cpu":
+        return radix_sort_words_reference(words, payload, live_bits)
+    cols = list(words) + [payload]
+    staging = [torch.empty_like(c) for c in cols]
+    for w in reversed(range(len(words))):
+        for shift in range(0, live_bits, rbits):
+            radix_pass(cols, w, shift, min(rbits, live_bits - shift),
+                       staging)
+    return cols[:-1], cols[-1]

@@ -61,6 +61,28 @@ def test_main_on_file_matches_jax_cli(tmp_path, capsys, dialect):
     assert g == w
 
 
+@pytest.mark.parametrize("dialect", ["sequential", "mpi", "both"])
+def test_rerun_matches_jax_cli(monkeypatch, dialect):
+    """A chain-mode misprediction on the fused route: both CLIs report
+    PATH:direct and RERUN:chain_to_ascending (RERUN in both dialects)."""
+    monkeypatch.setenv("SA_LCP_BIG_MIN", "10000")
+    monkeypatch.setenv("SA_CHAIN_EST_MIN", "100")
+    alnum = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+    text = alnum[np.random.default_rng(9).integers(0, 36, 30_000)]
+    text[15_000:15_300] = text[:300]     # one repeat, not a period
+    got, want = io.StringIO(), io.StringIO()
+    res = cli.run(text, "rerun.txt", "cpu", validate=True, dialect=dialect,
+                  out=got)
+    jax_cli.run(text, "rerun.txt", "single", None, validate=True,
+                dialect=dialect, out=want)
+    assert _comparable(got.getvalue()) == _comparable(want.getvalue())
+    assert res["path"] == "direct" and res["rerun"] == "chain_to_ascending"
+    assert got.getvalue().count("RERUN:chain_to_ascending") == (
+        2 if dialect == "both" else 1)
+    if dialect != "mpi":
+        assert "PATH:direct" in got.getvalue()
+
+
 def test_main_string_golden(capsys):
     assert cli.main(["mississippi", "--device", "cpu"]) == 0
     out = capsys.readouterr().out

@@ -12,6 +12,7 @@ import torch
 import hpc_suffix_array_tpu as jsa
 import hpc_suffix_array_tpu_torch as tsa
 from hpc_suffix_array_tpu_torch import native
+from hpc_suffix_array_tpu_torch.core.lcp import lcp_from_plcp, plcp_kernel
 from hpc_suffix_array_tpu_torch.core.lrs import lrs_locate
 from hpc_suffix_array_tpu_torch.core.oracle import (
     lcp_oracle, lrs_oracle, suffix_array_oracle)
@@ -57,8 +58,15 @@ def test_corpora_large_match_kasai(family):
     info = {}
     sa = tsa.build_suffix_array(text, device="cpu")
     lcp = tsa.build_lcp_array(text, sa, device="cpu", info=info)
-    assert info["plcp_rounds"] >= 1
-    assert np.array_equal(lcp.numpy(), native.lcp_kasai(text, sa.numpy()))
+    want = native.lcp_kasai(text, sa.numpy())
+    # The repetitive corpus takes the deep-repeat carried-keys route, as
+    # in the JAX package; the others take PLCP.
+    deep = family == "generate_repetitive_text"
+    assert info["lcp_path"] == ("direct" if deep else "plcp")
+    assert np.array_equal(lcp.numpy(), want)
+    plcp, rounds = plcp_kernel(torch.from_numpy(text), sa)
+    assert rounds >= 1
+    assert np.array_equal(lcp_from_plcp(plcp, sa).numpy(), want)
     assert tsa.find_longest_repeated_substring(
         text, sa, lcp, device="cpu") == lrs_oracle(text)
 

@@ -14,9 +14,17 @@ for name in ("jax", "jaxlib", "hpc_suffix_array_tpu"):
     sys.modules[name] = None          # any import of these now fails
 import hpc_suffix_array_tpu_torch as tsa
 import hpc_suffix_array_tpu_torch.cli as cli
+import hpc_suffix_array_tpu_torch.core.bigsort as bigsort
+import hpc_suffix_array_tpu_torch.kernels.radix as radix
 sa = tsa.build_suffix_array(b"banana", device="cpu")
 assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
 assert cli.main(["banana", "--device", "cpu", "--no-validate"]) == 0
+sa, lcp = tsa.build_suffix_array_direct(b"mississippi", device="cpu",
+                                        want_lcp=True)
+assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
+assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
+sa, lcp = tsa.build_sa_lcp(b"banana", device="cpu")
+assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad

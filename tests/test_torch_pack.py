@@ -31,9 +31,9 @@ def _inputs(seed, n, bits):
     return text, remap
 
 
-def _port(text, remap, bits, h0, n_real):
+def _port(text, remap, bits, h0, n_real, offset=0):
     return pack_ranks(torch.from_numpy(text), torch.from_numpy(remap),
-                      bits, h0, n_real).numpy()
+                      bits, h0, n_real, offset).numpy()
 
 
 @pytest.mark.parametrize("n,bits,h0", CASES)
@@ -68,21 +68,45 @@ def test_pack_matches_jax_fold(n, n_real, bits, h0):
     assert np.array_equal(_port(text, remap, bits, h0, n_real), want)
 
 
+# Word-mode cases: (bits, spw) of the carried-keys packings, word 0-2.
+WORD_CASES = [(6, 5), (2, 15), (1, 30), (8, 3)]
+
+
+@pytest.mark.parametrize("bits,spw", WORD_CASES)
+@pytest.mark.parametrize("word", [0, 1, 2])
+def test_pack_word_offset_matches_shifted_fold(bits, spw, word):
+    """out[i] folds the codes from i + word*spw; past n_real reads 0."""
+    n = 1000
+    text, remap = _inputs(bits * 10 + word, n, bits)
+    codes = np.concatenate([remap[text].astype(np.int64),
+                            np.zeros(3 * spw, np.int64)])
+    for n_real in (n, n - 7):
+        codes[n_real:] = 0
+        off = word * spw
+        want = np.zeros(n, np.int64)
+        for j in range(spw):
+            want = (want << bits) | codes[off + j:off + j + n]
+        got = _port(text, remap, bits, spw, n_real, offset=off)
+        assert np.array_equal(got, want.astype(np.int32))
+
+
 @pytest.mark.parametrize("change,err", [
     (dict(bits=10, h0=3), ValueError),
     (dict(bits=6, h0=6), ValueError),          # 36 bits > 30
     (dict(n_real=2000), ValueError),
     (dict(text=np.zeros(8, np.int32)), TypeError),
     (dict(remap=np.zeros(255, np.int32)), TypeError),
+    (dict(offset=-1), ValueError),
 ])
 def test_pack_rejects_bad_arguments(change, err):
     args = dict(text=np.zeros(1024, np.uint8),
-                remap=np.zeros(256, np.int32), bits=6, h0=5, n_real=1024)
+                remap=np.zeros(256, np.int32), bits=6, h0=5, n_real=1024,
+                offset=0)
     args.update(change)
     with pytest.raises(err):
         pack_ranks(torch.from_numpy(args["text"]),
                    torch.from_numpy(args["remap"]), args["bits"],
-                   args["h0"], args["n_real"])
+                   args["h0"], args["n_real"], args["offset"])
 
 
 def test_pack_has_no_fallback_for_other_devices():
@@ -111,3 +135,22 @@ def test_pack_kernel_matches_plain_on_card(n, bits, h0):
         want = pack_ranks_reference(t, r, bits, h0, n_real)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,spw", WORD_CASES)
+@pytest.mark.parametrize("n", [1000, 4096 * 3 + 5])
+def test_pack_word_offset_on_card(bits, spw, n):
+    """Word offsets move the tile's read window; word 2 of a 1-bit
+    alphabet reads 89 positions past i, beyond the 32-position halo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    text, remap = _inputs(n + bits, n, bits)
+    t = torch.from_numpy(text).cuda()
+    r = torch.from_numpy(remap).cuda()
+    for word in (0, 1, 2):
+        for n_real in (n, n - 3):
+            got = pack_ranks(t, r, bits, spw, n_real, word * spw)
+            want = pack_ranks_reference(t, r, bits, spw, n_real, word * spw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)

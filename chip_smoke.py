@@ -13,17 +13,24 @@ Drives the port's main paths on the card and checks them:
      0-2, four packings, with and without minpad) and at 2^28 bytes of
      random alnum and DNA; K2 block_digit_sort and K3 place_runs at
      rbits 4 and 8, 2^16 and 2^28, uniform and 95%-skewed keys; the
-     radix sort at 2^28 on the real alnum key words, beside torch.sort;
+     radix sort at 2^28 on the real alnum key words, beside torch.sort,
+     and at a refinement round's shape (segment, two window words and
+     the positions; 28, 30 and 30 live bits) on 2^28 rows;
   4. correctness: random alnum, DNA, period-1000 repetitive and words
-     at 2^22 (the doubling route) and 2^24 (the direct route) through
-     build_suffix_array -> build_lcp_array -> LRS -> validator, against
-     host SA-IS, Kasai and the LRS oracle, printing each route;
+     at 2^22 (the doubling route) and 2^24 (the direct route; words
+     with device tie refinement) through build_suffix_array ->
+     build_lcp_array -> LRS -> validator, against host SA-IS, Kasai and
+     the LRS oracle, printing each route;
   5. full size, main path: the CLI's run() on 2^28 bytes of random alnum
      with validation, which must take the direct route, counting the
      kernels' launches; then the doubling builder plus PLCP on the same
      text, which must give the same SA and LCP byte for byte;
   6. the CLI's run() on 2^28 bytes of period-1000 text, validated, in
-     chain mode on the direct route.
+     chain mode on the direct route;
+  7. the CLI's run() on 2^28 bytes of words (natural-text proxy),
+     validated, on the direct route with refinement, counting the
+     kernels' launches; then doubling plus PLCP on the same text, which
+     must give the same SA and LCP byte for byte.
 
 Any failed phase raises and the script exits nonzero. The line before
 the last is a JSON summary of the kernels; the last line is
@@ -71,6 +78,8 @@ SMALL_CASES = [(128, 6, 5), (128 * 8, 3, 10), (128 * 9, 9, 3),
 # last is not a multiple of the 4096-position tile).
 WORD_CASES = [(6, 5), (2, 15), (1, 30), (8, 3)]
 WORD_SIZES = [1000, 128 * 513, 4096 * 3 + 5]
+REFINE_KEYS = ("refine_members", "refine_pieces", "refine_rounds",
+               "refine_host_members", "refine_phase_s")
 CORPORA = (("random alnum", generate_random_text),
            ("DNA", generate_dna_text),
            ("repetitive p1000", generate_repetitive_text),
@@ -218,6 +227,36 @@ def compare_sort(text: np.ndarray) -> dict:
             "torch_sort_ms": median_ms(composite)}
 
 
+def compare_refine_sort(n: int = FULL_N) -> dict:
+    """radix_sort_words at a refinement round's shape: a non-decreasing
+    segment word (28 live bits), two heavily tied 30-bit window words
+    and the positions, against its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(n)
+    iota = torch.arange(n, dtype=torch.int32, device="cuda")
+    head = torch.rand(n, generator=g, device="cuda") < 0.3
+    head[0] = True
+    seg = torch.cummax(torch.where(head, iota, -1), 0).values
+    words = [seg] + [
+        (torch.randint(0, 40, (n,), generator=g, device="cuda",
+                       dtype=torch.int32) << 24)
+        | torch.randint(0, 3, (n,), generator=g, device="cuda",
+                        dtype=torch.int32) for _ in range(2)]
+    live = [28, 30, 30]
+
+    def fresh():
+        return [w.clone() for w in words], iota.clone()
+
+    err = exact(radix_sort_words(*fresh(), live),
+                radix_sort_words_reference(*fresh(), live),
+                "radix_sort_words refinement shape")
+    return {"max_abs_err": err,
+            "ms": median_ms(lambda a: radix_sort_words(*a, live),
+                            setup=fresh),
+            "plain_ms": median_ms(
+                lambda a: radix_sort_words_reference(*a, live),
+                setup=fresh)}
+
+
 def check_corpus(name: str, text: np.ndarray) -> dict:
     """SA, LCP, LRS and validator on the card against the host oracles."""
     t0 = time.perf_counter()
@@ -250,7 +289,8 @@ def check_corpus(name: str, text: np.ndarray) -> dict:
         raise AssertionError(f"{name}: validator accepted a swapped pair")
     route = {k: info.get(k) for k in ("path", "lcp_path", "rerun",
                                       "chain_mode", "n_words", "rounds",
-                                      "plcp_rounds", "declined")}
+                                      "plcp_rounds", "declined")
+             + REFINE_KEYS}
     phase(f"[4] {name} n={len(text)}: SA == SA-IS, LCP == Kasai, LRS "
           f"length {len(lrs or b'')} == oracle, validator True/False ok; "
           f"route {json.dumps(route)}; device pipeline {dt:.3f} s")
@@ -290,6 +330,41 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
     if missing:
         raise AssertionError(f"{name}: main path launched no {missing}")
     return res, counts, peak
+
+
+def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
+                     card: str) -> None:
+    """The doubling route and PLCP on the same text: an independent
+    device route, held byte for byte against the CLI's SA and LCP."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text_dev = as_byte_tensor(text, "cuda")
+    info: dict = {}
+    sa = build_suffix_array_doubling(text_dev, device="cuda", info=info)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plcp, plcp_rounds = plcp_kernel(text_dev, sa)
+    lcp = lcp_from_plcp(plcp, sa)
+    del plcp
+    find_longest_repeated_substring(text_dev, sa, lcp, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if pack_ranks.launches < 1:
+        raise AssertionError("doubling route launched no pack kernel")
+    if not (torch.equal(sa, arrays["sa"]) and
+            torch.equal(lcp, arrays["lcp"])):
+        raise AssertionError(f"2^28 {name}: direct and doubling+PLCP "
+                             "routes differ")
+    phase(f"{tag} doubling + PLCP n=2^28 {name}: SA and LCP == the "
+          f"direct route's, byte for byte; rounds={info['rounds']} "
+          f"plcp_rounds={plcp_rounds}; SA {t1 - t0:.3f} s, LCP+LRS "
+          f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak "
+          f"{peak / 2**30:.2f} GiB; pack launches {pack_ranks.launches} "
+          f"({card})")
 
 
 def main() -> int:
@@ -371,12 +446,21 @@ def main() -> int:
           f"exact; kernel {srt['ms']:.3f} ms, plain (stable torch.sort per "
           f"word) {srt['plain_ms']:.3f} ms, torch.sort of the 60-bit key "
           f"{srt['torch_sort_ms']:.3f} ms ({card})")
+    rsrt = compare_refine_sort()
+    phase(f"[3] radix_sort_words refinement shape n=2^28 (seg 28 bits, "
+          f"w0, w1 30 bits; idx), 12 passes: exact; kernel "
+          f"{rsrt['ms']:.3f} ms, plain {rsrt['plain_ms']:.3f} ms ({card})")
     torch.cuda.empty_cache()
 
     # 4) correctness through the routers
     for n in CHECK_SIZES:
         for name, gen in CORPORA:
-            check_corpus(name, gen(n, SEED))
+            route = check_corpus(name, gen(n, SEED))
+            if name == "words" and n > (1 << 22) and (
+                    route["path"] != "direct" or route["declined"]
+                    or not route["refine_members"]):
+                raise AssertionError(f"words n={n} did not refine on the "
+                                     f"direct route: {route}")
         torch.cuda.empty_cache()
 
     # 5) full size, main path: the direct route through the CLI
@@ -388,38 +472,8 @@ def main() -> int:
           f"{res['sa_time']:.3f} s, LCP+LRS {res['lcp_time']:.3f} s, "
           f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
           f"launches {json.dumps(counts)} ({card})")
-    main_counts = counts
-    # The doubling route and PLCP on the same text: an independent device
-    # route, held byte for byte against the CLI's SA and LCP.
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    text_dev = as_byte_tensor(alnum, "cuda")
-    info: dict = {}
-    sa = build_suffix_array_doubling(text_dev, device="cuda", info=info)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    plcp, plcp_rounds = plcp_kernel(text_dev, sa)
-    lcp = lcp_from_plcp(plcp, sa)
-    del plcp
-    find_longest_repeated_substring(text_dev, sa, lcp, device="cuda")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    d_peak = torch.cuda.max_memory_allocated()
-    if pack_ranks.launches < 1:
-        raise AssertionError("doubling route launched no pack kernel")
-    if not (torch.equal(sa, arrays["sa"]) and
-            torch.equal(lcp, arrays["lcp"])):
-        raise AssertionError("2^28 direct and doubling+PLCP routes differ")
-    phase(f"[5] doubling + PLCP n=2^28 random alnum: SA and LCP == the "
-          f"direct route's, byte for byte; rounds={info['rounds']} "
-          f"plcp_rounds={plcp_rounds}; SA {t1 - t0:.3f} s, LCP+LRS "
-          f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak "
-          f"{d_peak / 2**30:.2f} GiB; pack launches {pack_ranks.launches} "
-          f"({card})")
-    del sa, lcp, text_dev, arrays
+    against_doubling(alnum, arrays, "[5]", "random alnum", card)
+    del arrays
 
     # 6) periodic text through the CLI: chain mode on the direct route
     res, counts, peak = run_cli(generate_repetitive_text(FULL_N, SEED),
@@ -433,24 +487,42 @@ def main() -> int:
           f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
           f"launches {json.dumps(counts)} ({card})")
 
+    # 7) natural text through the CLI: the direct route with refinement
+    words = generate_words_text(FULL_N, SEED)
+    arrays = {}
+    res, words_counts, peak = run_cli(words, "words_2^28", arrays)
+    if not res.get("refine_members") or res.get("declined"):
+        raise AssertionError(f"words at 2^28 did not refine: {res}")
+    if words_counts["pack_ranks"] < res["n_words"] + 2:
+        raise AssertionError("words at 2^28: the refinement's pair table "
+                             "did not go through the pack kernel")
+    phase(f"[7] cli.run n=2^28 words: Valid suffix array: YES; "
+          f"PATH:{res['path']} n_words={res.get('n_words')} "
+          f"{json.dumps({k: res.get(k) for k in REFINE_KEYS})}; SA "
+          f"{res['sa_time']:.3f} s, LCP+LRS {res['lcp_time']:.3f} s, "
+          f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(words_counts)} ({card})")
+    against_doubling(words, arrays, "[7]", "words", card)
+    del arrays
+
     print(json.dumps({"kernels": [
         {"name": "pack_ranks", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
          "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
-         "launches": main_counts["pack_ranks"],
+         "launches": words_counts["pack_ranks"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
         {"name": "block_digit_sort", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:213",
-         "launches": main_counts["block_digit_sort"],
-         "max_abs_err": radix_err["k2"],
+         "launches": words_counts["block_digit_sort"],
+         "max_abs_err": max(radix_err["k2"], rsrt["max_abs_err"]),
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
         {"name": "place_runs", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:318",
-         "launches": main_counts["place_runs"],
-         "max_abs_err": radix_err["k3"],
+         "launches": words_counts["place_runs"],
+         "max_abs_err": max(radix_err["k3"], rsrt["max_abs_err"]),
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,8 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
 
     Returns the structured-results dict (also printed as text blocks),
     with the doubling and PLCP round counts, and the carried-keys
-    build's chain mode and word count where it ran. ``arrays``: optional
+    build's chain mode, word count and refinement keys where it ran
+    (``declined`` where it fell back). ``arrays``: optional
     dict that receives the ``sa`` and ``lcp`` tensors."""
     from hpc_suffix_array_tpu_torch.core.lcp import (
         build_lcp_array, build_sa_lcp, lcp_big_min)
@@ -134,7 +135,9 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
         "rounds": info.get("rounds", 0),
         "plcp_rounds": info.get("plcp_rounds", 0),
     }
-    for key in ("path", "chain_mode", "n_words"):
+    for key in ("path", "chain_mode", "n_words", "declined",
+                "refine_members", "refine_pieces", "refine_rounds",
+                "refine_host_members", "refine_phase_s"):
         if key in info:
             results[key] = info[key]
     if info.get("rerun"):

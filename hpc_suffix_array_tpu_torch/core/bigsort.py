@@ -21,16 +21,18 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
   4. *Post-sort pass (device, plain PyTorch)*: tie flags, the chain delta
      (``dmax``, ``dmin``, ``delta_ok``) and, with ``want_lcp``, the LCP
      of adjacent keys from xor and the highest set bit.
-  5. *Chain mode / residue*: globally periodic texts resolve their ties
-     by the chain rule after a period check (``_period_mismatches``);
-     otherwise the window-tied pairs are extracted and ordered on the
-     host (``_resolve_residue_host``, copied from the JAX package).
+  5. *Chain mode / residue / refinement*: globally periodic texts
+     resolve their ties by the chain rule after a period check
+     (``_period_mismatches``); otherwise the window-tied pairs are
+     extracted and ordered on the host (``_resolve_residue_host``, copied
+     from the JAX package) within its cap, and past it by the device
+     tie refinement (``core/refine.py``), whose remainder the same host
+     pass closes.
 
 Not ported here: the MSD builder, ``codes_from_bytes``/``byte_ranges``
 (workarounds for XLA's per-element gather cost; the pack kernel reads
-the remap from shared memory), ``bucket_size`` padding (no ``PAD_KEY``
-rows exist), and device refinement (slice 2b): a text whose tie mass
-would need it raises ``NotImplementedError``, which the routers catch.
+the remap from shared memory) and ``bucket_size`` padding (no
+``PAD_KEY`` rows exist).
 """
 
 from __future__ import annotations
@@ -532,9 +534,10 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
     (``meta["rerun"]``: ``chain_to_ascending``), and an ascending run
     that ties over a quarter of a chain-plausible text reruns in chain
     mode (``ascending_to_chain``). Ascending ties go to the host residue
-    within its cap. Raises NotImplementedError where the JAX package
-    would refine on the device (not ported) or where forced chain mode
-    does not hold."""
+    within its cap; past it, or past the extraction cap, the device
+    refinement (``core/refine.py``) orders them. Raises
+    NotImplementedError where forced chain mode does not hold, and
+    ``RefineOverflow`` (one) where refinement exceeds a cap."""
     n, spw, bits = state["n"], state["spw"], state["bits"]
     meta = state["meta"]
     chain_mode = force_chain_mode
@@ -577,8 +580,10 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
         return rerun("ascending_to_chain", True)
 
     patches = []
-    # The JAX package refines on the device past these caps (members <=
-    # 2*flags + groups); that is slice 2b.
+    refine = False
+    # The JAX package's gate: the direct build is one whole-text bucket,
+    # so the member cap applies to the flag count (members <= 2*flags +
+    # groups); past it, or past the extraction cap, refine on the device.
     host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
     if ties and not chain_mode:
         refine = ties * 2 > RESIDUE_SLOTS or ties > host_cap
@@ -587,17 +592,22 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
             refine = slots.shape[0] > RESIDUE_SLOTS
             if not refine:
                 patches.append((slots.cpu().numpy(), idxs.cpu().numpy()))
-        if refine:
-            raise NotImplementedError(
-                f"{ties} window-tied pairs need device refinement, which "
-                "is not ported yet (refinement not ported: slice 2b)")
-    del tie
     sa = s_idx
+    if refine:
+        from hpc_suffix_array_tpu_torch.core.refine import refine_ties
+
+        sa, lcp = refine_ties(
+            sa, tie, lcp, state["text_dev"], remap=state["remap"],
+            spw_main=spw, nw=state["nw"], minpad=state["minpad"],
+            host_text=state["host_text"], want_lcp=want_lcp, meta=meta)
+        meta["n_patched"] = meta["refine_host_members"]
+    del tie
     if patches:
         sa, lcp, n_patched = _apply_residue(
             sa, lcp, state["host_text"], patches, n, want_lcp)
         meta["n_patched"] = n_patched
     if want_lcp and state["minpad"]:
+        # After the residue and refinement patches (see _clamp_lcp).
         lcp = _clamp_lcp(sa, lcp, n)
     meta["chain_mode"] = chain_mode
     return (sa, lcp) if want_lcp else sa
@@ -609,14 +619,18 @@ def build_suffix_array_direct(text, *, device, info: dict | None = None,
     """One-call direct build (``prepare_direct`` + ``execute_direct``).
 
     ``info``: optional dict that receives the build's ``rerun``,
-    ``chain_mode``, ``n_patched`` and ``periods`` (as in the JAX
-    package), plus ``n_words``."""
+    ``chain_mode``, ``n_patched``, ``periods`` and, where refinement
+    ran, ``refine_members``, ``refine_rounds``, ``refine_pieces``,
+    ``refine_host_members`` (as in the JAX package) and
+    ``refine_phase_s``, plus ``n_words``."""
     state = prepare_direct(text, device=device, **kw)
     out = execute_direct(state, force_chain_mode=force_chain_mode,
                          want_lcp=want_lcp)
     if info is not None:
         info.update({k: v for k, v in state["meta"].items()
                      if k in ("rerun", "chain_mode", "n_patched",
-                              "periods")})
+                              "periods", "refine_members",
+                              "refine_rounds", "refine_pieces",
+                              "refine_host_members", "refine_phase_s")})
         info["n_words"] = state["nw"]
     return out

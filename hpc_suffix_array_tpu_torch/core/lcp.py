@@ -32,7 +32,8 @@ import torch
 
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap_dev, as_byte_array, build_suffix_array,
-    build_suffix_array_doubling, device_text)
+    build_suffix_array_doubling, device_text, doubling_reach,
+    sais_host_fallback)
 from hpc_suffix_array_tpu_torch.device import resolve_device
 
 # Bytes compared per unresolved position per round.
@@ -163,7 +164,8 @@ def lcp_from_plcp(plcp: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
 def _sa_lcp_big(text, n: int, *, device, text_dev=None,
                 info: dict | None = None):
     """(sa, lcp) from the direct carried-keys build, or None when it is
-    infeasible or declines (the caller then takes doubling and PLCP).
+    infeasible or declines (the caller then takes doubling and PLCP, or
+    host SA-IS and Kasai past the doubling reach).
 
     ``text``: the host bytes (planning); ``text_dev``: their device copy,
     whose alphabet is counted on the device. ``info`` receives the
@@ -198,13 +200,24 @@ def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
     return lcp_from_plcp(plcp, sa)
 
 
+def _sais_kasai(text, dev: torch.device, info: dict | None):
+    """(sa, lcp) from host SA-IS and Kasai (native C, O(n)), on ``dev``."""
+    from hpc_suffix_array_tpu_torch import native
+
+    host = as_byte_array(text)
+    sa = sais_host_fallback(host, device="cpu", info=info)
+    lcp = torch.from_numpy(native.lcp_kasai(host, sa.numpy()))
+    return sa.to(dev), lcp.to(dev)
+
+
 def build_sa_lcp(text, *, device, info: dict | None = None,
                  text_dev: torch.Tensor | None = None):
     """Fused (suffix array, LCP array) build, int32[n] each.
 
     Above ``SA_LCP_BIG_MIN`` this is one carried-keys pass; when that
     declines, the doubling builder and PLCP run directly (no second
-    carried-keys attempt). Below it, ``build_suffix_array`` and
+    carried-keys attempt) up to ``DOUBLING_REACH``, and host SA-IS and
+    Kasai above it. Below it, ``build_suffix_array`` and
     ``build_lcp_array`` run back to back. ``text_dev`` and ``info`` as
     in ``build_suffix_array``."""
     dev = resolve_device(device)
@@ -214,6 +227,8 @@ def build_sa_lcp(text, *, device, info: dict | None = None,
         derived = _sa_lcp_big(text, n, device=dev, text_dev=t, info=info)
         if derived is not None:
             return derived
+        if n > doubling_reach():
+            return _sais_kasai(text, dev, info)
         sa = build_suffix_array_doubling(t, device=dev, info=info)
         return sa, _plcp_lcp(t, sa, info)
     sa = build_suffix_array(text, device=dev, info=info, text_dev=t)

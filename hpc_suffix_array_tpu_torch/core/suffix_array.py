@@ -16,10 +16,12 @@ Differences from the JAX version:
 
 ``build_suffix_array`` routes as the JAX package's does above
 ``SA_BIG_THRESHOLD`` (4 MiB): to the direct carried-keys builder
-(``core/bigsort.py``) when ``direct_feasible`` holds, and to the
-doubling builder (``build_suffix_array_doubling``) otherwise or when the
-direct builder declines. The JAX package's MSD builder and its
-direct-vs-MSD crossover (``prefer_direct``) are not ported yet.
+(``core/bigsort.py``, with device tie refinement) when
+``direct_feasible`` holds, and otherwise or when the direct builder
+declines to the doubling builder (``build_suffix_array_doubling``) up to
+``DOUBLING_REACH``, and to host SA-IS (``sais_host_fallback``) above it.
+The JAX package's MSD builder and its direct-vs-MSD crossover
+(``prefer_direct``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ from hpc_suffix_array_tpu_torch.ops.sort import sort_by_rank_pairs
 FACTOR = 2
 # Bit budget for the packed initial rank code (must stay positive int32).
 PACK_BITS = 30
+# Largest text the doubling builder serves as a fallback. Doubling plus
+# PLCP peaked at 69.06 GiB at 2^30 random alnum on an H100 80GB HBM3
+# (30.00 GiB at 2^29; PERF.md); above it the routers close with host
+# SA-IS. The JAX package's reach, 2^28, was set by TPU v5e memory.
+DOUBLING_REACH = 1 << 30
 # Text bytes per bincount call in the device presence pass: bounds the
 # int64 temporary (8 B per byte) to 128 MiB.
 PRESENCE_CHUNK = 1 << 24
@@ -49,6 +56,11 @@ def big_threshold() -> int:
     """Texts above this many bytes (``SA_BIG_THRESHOLD``, 4 MiB, a
     threshold set on a TPU) try the carried-keys builder first."""
     return int(os.environ.get("SA_BIG_THRESHOLD", 1 << 22))
+
+
+def doubling_reach() -> int:
+    """Texts above this many bytes never take the doubling fallback."""
+    return DOUBLING_REACH
 
 
 def as_byte_array(text) -> np.ndarray:
@@ -179,6 +191,23 @@ def build_suffix_array_doubling(text, *, device, info: dict | None = None
     return sa
 
 
+def sais_host_fallback(text, *, device, info: dict | None = None
+                       ) -> torch.Tensor:
+    """Last-resort builder: host SA-IS (native C, O(n)) for a text every
+    device route declined, returned as int32[n] on ``device``.
+
+    The direct builder with refinement resolves any bounded-depth tie
+    structure, so this serves texts past the doubling fallback's reach
+    whose ties exceed the refinement caps (e.g. one huge non-periodic
+    repeated block). ``info`` receives ``path`` = "sais_host"."""
+    from hpc_suffix_array_tpu_torch import native
+
+    sa = torch.from_numpy(native.sa_build(as_byte_array(text)))
+    if info is not None:
+        info["path"] = "sais_host"
+    return sa.to(resolve_device(device))
+
+
 def build_suffix_array(text, *, device, info: dict | None = None,
                        text_dev: torch.Tensor | None = None
                        ) -> torch.Tensor:
@@ -190,10 +219,11 @@ def build_suffix_array(text, *, device, info: dict | None = None,
     on the host bytes, so pass ``text`` as a host array and the device
     copy here: a device tensor as ``text`` costs a copy to the host.
 
-    ``info``: optional dict that receives ``path`` ("direct" or
-    "doubling"), the direct build's keys (``rerun``, ``chain_mode``,
-    ``n_patched``, ``periods``, ``n_words``), ``declined`` (why the
-    direct builder fell back to doubling) or ``rounds``."""
+    ``info``: optional dict that receives ``path`` ("direct",
+    "doubling" or "sais_host"), the direct build's keys (``rerun``,
+    ``chain_mode``, ``n_patched``, ``periods``, ``n_words``, the
+    ``refine_*`` keys), ``declined`` (why the direct builder fell back)
+    or ``rounds``."""
     t = device_text(text, device, text_dev)
     n = t.shape[0]
     if n > big_threshold():
@@ -215,6 +245,8 @@ def build_suffix_array(text, *, device, info: dict | None = None,
             except NotImplementedError as e:
                 if info is not None:
                     info["declined"] = str(e)
+    if n > doubling_reach():
+        return sais_host_fallback(text, device=t.device, info=info)
     return build_suffix_array_doubling(t, device=t.device, info=info)
 
 

@@ -199,46 +199,56 @@ def radix_pass(cols, key_col: int, shift: int, rbits: int, staging=None):
                       out=cols)
 
 
-def _check_words(words, payload, live_bits: int):
+def _check_words(words, payload, live_bits) -> list[int]:
+    """Checks the sort's columns; returns the live bits of each word
+    (``live_bits``: one int for every word, or one entry each)."""
     if not 1 <= len(words) <= MAX_COLS - 1:
         raise ValueError(f"need 1..{MAX_COLS - 1} key words, got "
                          f"{len(words)}")
-    if not 1 <= live_bits <= 32:
-        raise ValueError(f"live_bits={live_bits} outside [1, 32]")
+    per_word = ([live_bits] * len(words) if isinstance(live_bits, int)
+                else list(live_bits))
+    if len(per_word) != len(words):
+        raise ValueError(f"{len(per_word)} live_bits entries for "
+                         f"{len(words)} words")
+    for b in per_word:
+        if not 1 <= b <= 32:
+            raise ValueError(f"live_bits={b} outside [1, 32]")
     _check(list(words) + [payload], 0, 0, 1)
+    return per_word
 
 
-def radix_sort_words_reference(words, payload, live_bits: int):
+def radix_sort_words_reference(words, payload, live_bits):
     """Plain sort: stable ``torch.sort`` per word, least significant
     first, on the live bits. In place, like ``radix_sort_words``."""
-    _check_words(words, payload, live_bits)
-    mask = (1 << live_bits) - 1
+    per_word = _check_words(words, payload, live_bits)
     perm = torch.arange(payload.shape[0], device=payload.device)
-    for w in reversed(words):
-        key = (w.long() & 0xFFFFFFFF & mask)[perm]
+    for w, b in reversed(list(zip(words, per_word))):
+        key = (w.long() & ((1 << b) - 1))[perm]
         perm = perm[torch.sort(key, stable=True).indices]
     for c in list(words) + [payload]:
         c.copy_(c[perm])
     return list(words), payload
 
 
-def radix_sort_words(words, payload, live_bits: int, rbits: int = RBITS):
+def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
     """Stable sort of ``payload`` (int32[n]) by the key words (1-3
-    int32[n], most significant first), on the low ``live_bits`` bits of
-    each word, read as unsigned.
+    int32[n], most significant first), on the low live bits of each
+    word, read as unsigned. ``live_bits`` is one int for every word or a
+    list with one entry per word (a refinement round's segment word
+    needs only ceil(log2(rows)) bits).
 
     Sorts IN PLACE: the inputs are one of the two buffer sets the passes
     ping-pong between, so the sort needs one staging set on top.
     Returns (words, payload), sorted. On CUDA tensors it runs
     ceil(live_bits / rbits) K2+K3 passes per word; on CPU tensors
     ``radix_sort_words_reference``."""
-    _check_words(words, payload, live_bits)
+    per_word = _check_words(words, payload, live_bits)
     if _device_kind(payload, "radix_sort_words") == "cpu":
-        return radix_sort_words_reference(words, payload, live_bits)
+        return radix_sort_words_reference(words, payload, per_word)
     cols = list(words) + [payload]
     staging = [torch.empty_like(c) for c in cols]
     for w in reversed(range(len(words))):
-        for shift in range(0, live_bits, rbits):
-            radix_pass(cols, w, shift, min(rbits, live_bits - shift),
+        for shift in range(0, per_word[w], rbits):
+            radix_pass(cols, w, shift, min(rbits, per_word[w] - shift),
                        staging)
     return cols[:-1], cols[-1]

@@ -102,8 +102,10 @@ def test_run_offsets_match_radix_pass_dma_glue():
 
 
 def _lexsort_words(words, payload, live_bits):
-    mask = (1 << live_bits) - 1
-    keys = [w.astype(np.int64) & 0xFFFFFFFF & mask for w in words]
+    per_word = ([live_bits] * len(words) if isinstance(live_bits, int)
+                else live_bits)
+    keys = [w.astype(np.int64) & ((1 << b) - 1)
+            for w, b in zip(words, per_word)]
     order = np.lexsort([np.arange(len(payload))] + keys[::-1])
     return [w[order] for w in words], payload[order]
 
@@ -123,6 +125,41 @@ def test_radix_sort_words_reference_matches_lexsort(nw, live_bits):
     for g, w in zip(got_w, want_w):
         assert np.array_equal(g.numpy(), w)
     assert np.array_equal(got_p.numpy(), want_p)
+
+
+def _mixed_words(live_bits, n, seed):
+    """Words with few distinct values in their live bits (heavy ties)
+    and random bits above them, which the sort must carry, not read."""
+    rng = np.random.default_rng(seed)
+    words = []
+    for b in live_bits:
+        live = rng.integers(0, 5, n) << max(b - 3, 0) | rng.integers(0, 2, n)
+        above = rng.integers(0, 1 << 31, n) << b if b < 32 else 0
+        words.append(((live & ((1 << b) - 1)) | above).astype(np.uint32)
+                     .view(np.int32))
+    return words
+
+
+@pytest.mark.parametrize("live_bits", [[5, 30, 30], [1, 17], [32, 3, 8],
+                                       [22]])
+def test_radix_sort_words_per_word_live_bits(live_bits):
+    """One live-bit width per word (a refinement round's segment word
+    beside two window words), against numpy lexsort on the same bits."""
+    n = 5000
+    words = _mixed_words(live_bits, n, sum(live_bits))
+    pay = np.random.default_rng(1).permutation(n).astype(np.int32)
+    want_w, want_p = _lexsort_words(words, pay, live_bits)
+    got_w, got_p = radix_sort_words(_cols(*words), _cols(pay)[0], live_bits)
+    for g, w in zip(got_w, want_w):
+        assert np.array_equal(g.numpy(), w)
+    assert np.array_equal(got_p.numpy(), want_p)
+
+
+@pytest.mark.parametrize("live_bits", [[30, 30], [0, 30, 30], [33], []])
+def test_radix_sort_words_rejects_bad_live_bits(live_bits):
+    words = _cols(*[np.zeros(8, np.int32)] * 3)
+    with pytest.raises(ValueError):
+        radix_sort_words(words, _cols(np.arange(8))[0], live_bits)
 
 
 def test_radix_sort_words_sorts_live_bits_only():
@@ -211,6 +248,27 @@ def test_radix_sort_words_matches_plain_on_card(nw, rbits):
                                     _cols(pay)[0].cuda(), 30, rbits)
     want_w, want_p = radix_sort_words_reference(
         [c.cuda() for c in _cols(*words)], _cols(pay)[0].cuda(), 30)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, want_p)
+    for g, w in zip(got_w, want_w):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_radix_sort_words_per_word_live_bits_on_card():
+    """A refinement round's shape: (segment, word 0, word 1; idx) at 22,
+    30 and 30 live bits, 11 passes, against the plain version."""
+    _need_cuda()
+    n = 1 << 20
+    words = _mixed_words([22, 30, 30], n, 3)
+    pay = np.arange(n, dtype=np.int32)
+    before = block_digit_sort.launches
+    got_w, got_p = radix_sort_words([c.cuda() for c in _cols(*words)],
+                                    _cols(pay)[0].cuda(), [22, 30, 30])
+    assert block_digit_sort.launches == before + 11
+    want_w, want_p = radix_sort_words_reference(
+        [c.cuda() for c in _cols(*words)], _cols(pay)[0].cuda(),
+        [22, 30, 30])
     torch.cuda.synchronize()
     assert torch.equal(got_p, want_p)
     for g, w in zip(got_w, want_w):

@@ -1,0 +1,342 @@
+"""Device tie refinement of the port against the JAX package's.
+
+Every input is made with numpy from a seed and goes through both
+packages: the direct builder with refinement forced (as
+``tests/test_refine.py`` forces it) against JAX
+``build_suffix_array_direct``, one refinement round against JAX
+``_refine_round``, the pair table against a numpy fold, and the routers'
+fallbacks (doubling, host SA-IS past the doubling reach). All
+comparisons are exact (tolerance 0: SA, LCP, words and segment ids are
+integers), and every SA and LCP is also held against SA-IS and Kasai.
+``refine_members`` must equal the JAX value; rounds, pieces and host
+members depend on the piece geometry, which the port redesigned.
+"""
+
+import io
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hpc_suffix_array_tpu.core.bigsort as jbs
+import hpc_suffix_array_tpu.core.refine as jrf
+import hpc_suffix_array_tpu_torch as tsa
+import hpc_suffix_array_tpu_torch.core.bigsort as tbs
+import hpc_suffix_array_tpu_torch.core.refine as trf
+import hpc_suffix_array_tpu_torch.core.suffix_array as tsuf
+from hpc_suffix_array_tpu.datasets.generate import generate_words_text
+from hpc_suffix_array_tpu_torch.cli import run as cli_run
+from hpc_suffix_array_tpu_torch.core.oracle import (
+    lcp_oracle, suffix_array_oracle)
+
+ALNUM = np.frombuffer(
+    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
+    np.uint8)
+DNA = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _force_refine(monkeypatch, **extra):
+    """Route even tiny tie masses through the device refinement."""
+    monkeypatch.setenv("SA_HOST_RESIDUE_MAX", "8")
+    monkeypatch.setenv("SA_REFINE_CHECK", "1")   # the JAX per-piece check
+    for k, v in extra.items():
+        monkeypatch.setenv(k, str(v))
+
+
+def _both(text):
+    """Both direct builders with and without LCP: SA and LCP equal each
+    other and SA-IS/Kasai, refine_members equal. Returns the port's
+    info from the LCP build."""
+    ji, pi = {}, {}
+    j_sa, j_lcp = jbs.build_suffix_array_direct(text, want_lcp=True, info=ji)
+    p_sa, p_lcp = tbs.build_suffix_array_direct(text, device="cpu",
+                                                want_lcp=True, info=pi)
+    want = suffix_array_oracle(text)
+    assert p_sa.dtype == torch.int32 and p_lcp.dtype == torch.int32
+    assert np.array_equal(p_sa.numpy(), np.asarray(j_sa))
+    assert np.array_equal(p_sa.numpy(), want)
+    assert np.array_equal(p_lcp.numpy(), np.asarray(j_lcp))
+    assert np.array_equal(p_lcp.numpy(), lcp_oracle(text, want))
+    assert pi["refine_members"] == ji["refine_members"] > 0
+    pi2 = {}
+    p_sa2 = tbs.build_suffix_array_direct(text, device="cpu", info=pi2)
+    assert np.array_equal(p_sa2.numpy(), want)
+    assert pi2["refine_members"] == pi["refine_members"]
+    assert pi["n_patched"] == pi["refine_host_members"]
+    return pi
+
+
+def _deep_block():
+    """A 2000-byte block planted at three sites (test_refine.py's)."""
+    rng = np.random.default_rng(11)
+    text = rng.integers(97, 123, 1 << 17).astype(np.uint8)
+    blk = text[:2000].copy()
+    for pos in (30_000, 70_000, 110_000):
+        text[pos:pos + 2000] = blk
+    return text
+
+
+def _minpad_dup():
+    rng = np.random.default_rng(5)
+    text = DNA[rng.integers(0, 4, 1 << 17)].copy()
+    text[500:2500] = text[60_000:62_000]
+    return text
+
+
+def _min_symbol_tail():
+    rng = np.random.default_rng(6)
+    text = DNA[rng.integers(0, 4, 1 << 16)].copy()
+    text[:3000] = ord("A")
+    text[-3000:] = ord("A")
+    return text
+
+
+def _tail_inside_window():
+    """Reserved-0 alnum whose last 301 bytes repeat an earlier run of
+    "xy": the tail's suffixes tie with longer ones until they end, so
+    windows reach past n and read the all-pad row pk2[n]."""
+    text = ALNUM[np.random.default_rng(7).integers(0, 62, 1 << 16)].copy()
+    run = np.frombuffer(b"xy" * 200, np.uint8)
+    text[1000:1400] = run
+    text[-301:] = run[:301]
+    return text
+
+
+CASES = {
+    "words_seed0": lambda: generate_words_text(1 << 17, seed=0),
+    "words_seed3": lambda: generate_words_text(1 << 17, seed=3),
+    "deep_block": _deep_block,
+    "minpad_duplication": _minpad_dup,
+    "min_symbol_tail": _min_symbol_tail,
+    "tail_inside_window": _tail_inside_window,
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_refined_direct_matches_jax(monkeypatch, name):
+    _force_refine(monkeypatch)
+    info = _both(CASES[name]())
+    if name == "deep_block":
+        assert info["refine_host_members"] > 0
+
+
+def test_multi_round(monkeypatch):
+    """A one-member host budget forces >= 2 device rounds; the boundary
+    LCPs recorded in later rounds must be exact."""
+    _force_refine(monkeypatch, SA_REFINE_HOST_PIECE=1)
+    info = _both(generate_words_text(1 << 17, seed=2))
+    assert info["refine_rounds"] >= 2
+
+
+def test_multi_round_with_compaction(monkeypatch):
+    """Rounds on a piece of over 2^12 rows past the point where at most a
+    quarter is still tied: the geometric compaction commits the
+    resolved rows and refines the rest."""
+    _force_refine(monkeypatch, SA_REFINE_HOST_PIECE=1)
+    text = generate_words_text(1 << 17, seed=0, vocab_size=64)
+    info = _both(text)
+    assert info["refine_rounds"] >= 3
+
+
+def test_multi_piece(monkeypatch):
+    _force_refine(monkeypatch, SA_REFINE_PIECE=256)
+    info = _both(generate_words_text(1 << 16, seed=9))
+    assert info["refine_pieces"] >= 2
+
+
+def test_piece_of_more_than_2_16_members(monkeypatch):
+    """One piece of over 2^16 rows (the JAX package's int32 wrap of its
+    pad segments past 2^16-row chunks, commit 25ca0c5; the port has no
+    pad rows)."""
+    _force_refine(monkeypatch)
+    text = generate_words_text(1 << 17, seed=1, vocab_size=16)
+    info = _both(text)
+    assert info["refine_pieces"] == 1
+    assert info["refine_members"] > 1 << 16
+
+
+def test_refine_overflow_falls_back(monkeypatch):
+    """With refinement capped to nothing both direct builders raise
+    NotImplementedError (RefineOverflow is one), and the router returns
+    the exact SA through doubling and says why."""
+    _force_refine(monkeypatch, SA_REFINE_ROUNDS=0, SA_REFINE_HOST_PIECE=0)
+    monkeypatch.setenv("SA_BIG_THRESHOLD", str(1 << 14))
+    text = generate_words_text(1 << 16, seed=1)
+    with pytest.raises(NotImplementedError):
+        jbs.build_suffix_array_direct(text)
+    with pytest.raises(trf.RefineOverflow):
+        tbs.build_suffix_array_direct(text, device="cpu")
+    assert issubclass(trf.RefineOverflow, NotImplementedError)
+    info = {}
+    sa = tsa.build_suffix_array(text, device="cpu", info=info)
+    assert np.array_equal(sa.numpy(), suffix_array_oracle(text))
+    assert info["path"] == "doubling"
+    assert "refinement rounds" in info["declined"]
+
+
+def test_group_max_overflow(monkeypatch):
+    _force_refine(monkeypatch, SA_REFINE_GROUP_MAX=4)
+    with pytest.raises(trf.RefineOverflow, match="SA_REFINE_GROUP_MAX"):
+        tbs.build_suffix_array_direct(generate_words_text(1 << 15, seed=1),
+                                      device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["build_suffix_array", "build_sa_lcp"])
+def test_sais_host_past_doubling_reach(monkeypatch, entry):
+    """A declined text past the (lowered) doubling reach closes with host
+    SA-IS (and Kasai), on the requested device."""
+    _force_refine(monkeypatch, SA_REFINE_ROUNDS=0, SA_REFINE_HOST_PIECE=0)
+    monkeypatch.setenv("SA_BIG_THRESHOLD", str(1 << 14))
+    monkeypatch.setenv("SA_LCP_BIG_MIN", str(1 << 14))
+    monkeypatch.setattr(tsuf, "DOUBLING_REACH", 1 << 15)
+    text = generate_words_text(1 << 16, seed=4)
+    info = {}
+    out = getattr(tsa, entry)(text, device="cpu", info=info)
+    sa, lcp = out if entry == "build_sa_lcp" else (out, None)
+    want = suffix_array_oracle(text)
+    assert sa.dtype == torch.int32 and sa.device.type == "cpu"
+    assert np.array_equal(sa.numpy(), want)
+    if lcp is not None:
+        assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))
+    assert info["path"] == "sais_host"
+    assert "refinement rounds" in info["declined"]
+
+
+def test_sais_host_fallback_matches_jax():
+    from hpc_suffix_array_tpu.core.suffix_array import sais_host_fallback
+
+    text = generate_words_text(1 << 15, seed=4)
+    ji, pi = {}, {}
+    sa = tsuf.sais_host_fallback(text, device="cpu", info=pi)
+    assert np.array_equal(sa.numpy(),
+                          np.asarray(sais_host_fallback(text, ji)))
+    assert pi["path"] == ji["path"] == "sais_host"
+
+
+def test_build_sa_lcp_words_direct(monkeypatch):
+    """The fused entry serves a words text on the direct route."""
+    _force_refine(monkeypatch)
+    monkeypatch.setenv("SA_LCP_BIG_MIN", str(1 << 14))
+    from hpc_suffix_array_tpu.core.lcp import build_sa_lcp
+
+    text = generate_words_text(1 << 16, seed=8)
+    info = {}
+    sa, lcp = tsa.build_sa_lcp(text, device="cpu", info=info)
+    j_sa, j_lcp = build_sa_lcp(text)
+    assert np.array_equal(sa.numpy(), np.asarray(j_sa))
+    assert np.array_equal(lcp.numpy(), np.asarray(j_lcp))
+    assert np.array_equal(lcp.numpy(), lcp_oracle(text, sa.numpy()))
+    assert info["path"] == "direct" and info["refine_members"] > 0
+    assert "declined" not in info
+
+
+def test_cli_words_direct(monkeypatch):
+    """cli.run on words above the lowered thresholds: PATH:direct with
+    refinement, validated."""
+    monkeypatch.setenv("SA_BIG_THRESHOLD", str(1 << 14))
+    monkeypatch.setenv("SA_LCP_BIG_MIN", str(1 << 14))
+    monkeypatch.setenv("SA_HOST_RESIDUE_MAX", "8")
+    text = generate_words_text(1 << 16, seed=5)
+    buf, arrays = io.StringIO(), {}
+    res = cli_run(text, "words", "cpu", validate=True, dialect="sequential",
+                  out=buf, arrays=arrays)
+    report = buf.getvalue()
+    assert "Valid suffix array: YES" in report and "PATH:direct" in report
+    assert res["refine_members"] > 0 and "declined" not in res
+    want = suffix_array_oracle(text)
+    assert np.array_equal(arrays["sa"].numpy(), want)
+    assert np.array_equal(arrays["lcp"].numpy(), lcp_oracle(text, want))
+
+
+# --- pieces of the module -------------------------------------------------
+
+@pytest.mark.parametrize("sigma", [4, 5, 63, 256])
+def test_pair_table(sigma):
+    """pk2 against a numpy reserved-0 fold; row n and the windows that
+    run past n read 0 codes."""
+    rng = np.random.default_rng(sigma)
+    n = 3000
+    remap = np.zeros(256, np.int32)
+    remap[:sigma] = np.arange(1, sigma + 1)
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    bits, spw = trf.refine_packing(sigma)
+    pk2 = trf.pair_table(torch.from_numpy(text), remap).numpy()
+    codes = np.zeros(n + 2 * spw + 1, np.int64)
+    codes[:n] = remap[text]
+    want = np.zeros((n + 1, 2), np.int64)
+    for col in range(2):
+        for j in range(spw):
+            want[:, col] = (want[:, col] << bits) | codes[
+                col * spw + j:col * spw + j + n + 1]
+    assert pk2.shape == (n + 1, 2)
+    assert np.array_equal(pk2, want)
+    assert not pk2[n].any()
+
+
+def test_piece_bounds_start_at_heads():
+    rng = np.random.default_rng(3)
+    head = torch.from_numpy(rng.random(5000) < 0.05)
+    head[0] = True
+    for target in (1, 7, 100, 4999, 5000, 10_000):
+        b = trf.piece_bounds(head, target)
+        assert b[0] == 0 and b[-1] == 5000
+        assert all(x < y for x, y in zip(b, b[1:]))
+        assert all(bool(head[x]) for x in b[:-1])
+        for x, y in zip(b, b[1:]):
+            # A piece outgrows the target only by one group's tail.
+            assert y - x <= target or not head[x + target:y].any()
+
+
+def test_refine_round_matches_jax():
+    """One round from fresh segments (words at depth 10): the segment
+    partition, boundary LCP patches and the tied count equal JAX
+    ``_refine_round``; each segment holds the same text indices (the
+    JAX sort is unstable, so the order inside a tied segment is free).
+    The JAX package labels segments by head position, the port by
+    ordinal."""
+    text = generate_words_text(1 << 14, seed=6)
+    n = len(text)
+    remap = np.zeros(256, np.int32)
+    present = np.flatnonzero(np.bincount(text, minlength=256))
+    remap[present] = np.arange(1, len(present) + 1)
+    bits, spw = trf.refine_packing(len(present))
+    pk2 = trf.pair_table(torch.from_numpy(text), remap)
+    # Rows: every suffix, grouped by its first 2*spw symbols.
+    order = np.lexsort((np.arange(n), pk2[:n, 1].numpy(),
+                        pk2[:n, 0].numpy()))
+    keys = pk2.numpy()[order]
+    head = np.r_[True, (keys[1:] != keys[:-1]).any(axis=1)]
+    seg = trf.segment_ids(torch.from_numpy(head))
+    j_seg0 = np.maximum.accumulate(np.where(head, np.arange(n), -1))
+    idx = torch.from_numpy(order.astype(np.int32))
+    patch = torch.full((n,), -1, dtype=torch.int32)
+    j_seg, j_idx, j_patch, j_tied = jrf._refine_round(
+        n, spw, bits, jnp.asarray(j_seg0.astype(np.int32)),
+        jnp.asarray(idx.numpy()),
+        jnp.asarray(patch.numpy()), jnp.asarray(pk2.numpy()),
+        jnp.int32(2 * spw), jnp.int32(n))
+    p_seg, p_idx, p_patch, p_tied = trf.refine_round(
+        seg.clone(), idx.clone(), patch, pk2, 2 * spw, spw, bits)
+    assert p_tied == int(j_tied) > 0
+    j_seg = np.asarray(j_seg)
+    starts = np.r_[True, j_seg[1:] != j_seg[:-1]]
+    assert np.array_equal(p_seg.numpy(), np.cumsum(starts) - 1)
+    assert np.array_equal(p_patch.numpy(), np.asarray(j_patch))
+    assert (p_patch.numpy() >= 0).any()
+    key = p_seg.numpy().astype(np.int64) * n
+    assert np.array_equal(np.sort(key + p_idx.numpy()),
+                          np.sort(key + np.asarray(j_idx)))
+
+
+def test_segment_ids():
+    head = torch.tensor([1, 0, 0, 1, 1, 0, 1], dtype=torch.bool)
+    assert trf.segment_ids(head).tolist() == [0, 0, 0, 1, 2, 2, 3]
+    assert trf.segment_ids(head).dtype == torch.int32
+
+
+def test_tied_rows():
+    seg = torch.tensor([0, 0, 2, 3, 3, 3, 6, 7, 7], dtype=torch.int32)
+    rows, head = trf.tied_rows(seg)
+    assert rows.tolist() == [0, 1, 3, 4, 5, 7, 8]
+    assert head.tolist() == [True, False, True, False, False, True, False]

@@ -12,10 +12,15 @@ Drives the port's main paths on the card and checks them:
      5): the pack kernel (K1) at the test shapes, in word mode (words
      0-2, four packings, with and without minpad) and at 2^28 bytes of
      random alnum and DNA; K2 block_digit_sort and K3 place_runs at
-     rbits 4 and 8, 2^16 and 2^28, uniform and 95%-skewed keys; the
-     radix sort at 2^28 on the real alnum key words, beside torch.sort,
-     and at a refinement round's shape (segment, two window words and
-     the positions; 28, 30 and 30 live bits) on 2^28 rows;
+     rbits 4 and 8, 2^16 and 2^28, uniform and 95%-skewed keys (the
+     first design of the pass, which the sort no longer runs); the onesweep kernels
+     digit_histograms and onesweep_pass at rbits 4 and 8, 2^16 and 2^28,
+     uniform, skewed and constant keys, and one pass at 2^28 (3 and 4
+     columns) timed beside K2 + glue + K3 and the plain pass; the radix
+     sort at 2^28 on the real alnum key words, beside torch.sort, and at
+     a refinement round's shape (segment, two window words and the
+     positions; 28, 30 and 30 live bits) on 2^28 and 2^22 rows, with
+     the passes it ran and skipped;
   4. correctness: random alnum, DNA, period-1000 repetitive and words
      at 2^22 (the doubling route) and 2^24 (the direct route; words
      with device tie refinement) through build_suffix_array ->
@@ -33,8 +38,11 @@ Drives the port's main paths on the card and checks them:
      must give the same SA and LCP byte for byte.
 
 Any failed phase raises and the script exits nonzero. The line before
-the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+the last is a JSON summary of the kernels, each row's ``launches`` read
+from the words run of phase 7 (K2 and K3 read 0 there: the sort no
+longer runs them; their ``check_launches`` are those of the one K2 +
+glue + K3 pass of phase 3 that is held against the onesweep pass); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -64,9 +72,10 @@ from hpc_suffix_array_tpu_torch.kernels import _build
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
-    block_digit_sort, block_digit_sort_reference, place_runs,
-    place_runs_reference, radix_sort_words, radix_sort_words_reference,
-    run_offsets)
+    LookBack, block_digit_sort, block_digit_sort_reference, digit_histograms,
+    digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
+    place_runs, place_runs_reference, radix_pass, radix_sort_words,
+    radix_sort_words_reference, run_offsets)
 
 FULL_N = 1 << 28
 CHECK_SIZES = (1 << 22, 1 << 24)
@@ -151,14 +160,17 @@ def compare_pack(text: np.ndarray, remap: np.ndarray, bits: int, h0: int,
 
 
 def keys_on_card(kind: str, n: int, seed: int) -> list[torch.Tensor]:
-    """(key, iota, second key) int32 columns: uniform 30-bit keys, or the
-    TestRadix skew (95% of keys 15 << 8)."""
+    """(key, iota, second key) int32 columns: uniform 30-bit keys, the
+    TestRadix skew (95% of keys 15 << 8), or one constant key (every
+    tile on one digit: the longest look-back chains)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     key = torch.randint(0, 1 << 30, (n,), generator=g, device="cuda",
                         dtype=torch.int32)
     if kind == "skewed":
         hot = torch.rand(n, generator=g, device="cuda") < 0.95
         key = torch.where(hot, torch.full_like(key, 15 << 8), key)
+    elif kind == "constant":
+        key = torch.full_like(key, 0x2A5A5A5A)
     other = torch.randint(0, 1 << 30, (n,), generator=g, device="cuda",
                           dtype=torch.int32)
     return [key, torch.arange(n, dtype=torch.int32, device="cuda"), other]
@@ -199,27 +211,108 @@ def compare_radix_pass(n: int, rbits: int, kind: str, timed: bool) -> dict:
     return out
 
 
+def plain_starts(key: torch.Tensor, shift: int, rbits: int) -> torch.Tensor:
+    """digit_starts of one onesweep_pass outside a sort: the exclusive
+    scan of the plain digit counts."""
+    digit = ((key.long() & 0xFFFFFFFF) >> shift) & ((1 << rbits) - 1)
+    hist = torch.bincount(digit, minlength=1 << rbits)
+    return (torch.cumsum(hist, 0) - hist).to(torch.int32)
+
+
+def compare_onesweep(n: int, rbits: int, kind: str) -> dict:
+    """digit_histograms (the key and the second key as two 30-bit words)
+    and one onesweep_pass against their plain versions."""
+    cols = keys_on_card(kind, n, n + rbits + 1)
+    words = [cols[0], cols[2]]
+    what = f"n={n} rbits={rbits} {kind}"
+    err_h = exact(digit_histograms(words, 30, rbits),
+                  digit_histograms_reference(words, 30, rbits),
+                  "digit_histograms " + what)
+    err_p = 0
+    for shift in (0, 30 - rbits):
+        err_p = max(err_p, exact(
+            onesweep_pass(cols, 0, shift, rbits,
+                          plain_starts(cols[0], shift, rbits),
+                          LookBack(n, 1, "cuda")),
+            onesweep_pass_reference(cols, 0, shift, rbits),
+            f"onesweep_pass shift={shift} " + what))
+    return {"hist_err": err_h, "pass_err": err_p}
+
+
+def time_passes(n_cols: int) -> dict:
+    """One pass at 2^28, rbits 8, shift 8, on ``n_cols`` int32 columns:
+    onesweep_pass (its digit starts given, its look-back status zeroed
+    in each call), the K2 + glue + K3 pass and the plain pass. The K2 +
+    glue + K3 pass runs once first, against the onesweep pass's output,
+    with the launch counts set to 0 just before it."""
+    cols = keys_on_card("uniform", FULL_N, 8)
+    if n_cols == 4:
+        cols.append(cols[2].flip(0))
+    hist = digit_histograms([cols[0]], 16, 8)[1]
+    starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    out = [torch.empty_like(c) for c in cols]
+
+    def one_pass(lookback):
+        onesweep_pass(cols, 0, 8, 8, starts, lookback, out)
+
+    def fresh_lookback():
+        return LookBack(FULL_N, 1, "cuda")
+
+    one_pass(fresh_lookback())
+    work = [c.clone() for c in cols]
+    staging = [torch.empty_like(c) for c in cols]
+    block_digit_sort.launches = place_runs.launches = 0
+    radix_pass(work, 0, 8, 8, staging)
+    k23_launches = {"block_digit_sort": block_digit_sort.launches,
+                    "place_runs": place_runs.launches}
+    exact(work, out, f"K2 + glue + K3 pass vs onesweep pass, {n_cols} cols")
+    return {"ms": median_ms(one_pass, setup=fresh_lookback),
+            "k23_ms": median_ms(
+                lambda _: radix_pass(work, 0, 8, 8, staging),
+                setup=lambda: [w.copy_(c) for w, c in zip(work, cols)]),
+            "plain_ms": median_ms(
+                lambda _: onesweep_pass_reference(cols, 0, 8, 8, out)),
+            "k23_launches": k23_launches}
+
+
+def sort_and_count(words, payload, live):
+    """radix_sort_words, and the passes it ran and skipped."""
+    run0 = radix_sort_words.passes_run
+    skip0 = radix_sort_words.passes_skipped
+    got = radix_sort_words(words, payload, live)
+    return got, (radix_sort_words.passes_run - run0,
+                 radix_sort_words.passes_skipped - skip0)
+
+
 def compare_sort(text: np.ndarray) -> dict:
     """radix_sort_words on the 2^28 alnum key words (k0, k1) against its
-    plain version, and both beside torch.sort on the same 60-bit key."""
+    plain version, and both beside torch.sort on the same 60-bit key;
+    digit_histograms on the two words against its plain version."""
     t = torch.tensor(text, dtype=torch.uint8, device="cuda")
     remap, _, _ = alphabet_remap(text)
     words = direct_keys(t, remap, 6, 5, 2, False)
+    del t
     idx = torch.arange(len(text), dtype=torch.int32, device="cuda")
 
     def fresh():
         return [w.clone() for w in words], idx.clone()
 
-    got = radix_sort_words(*fresh(), 30)
+    got, passes = sort_and_count(*fresh(), 30)
     err = exact(got, radix_sort_words_reference(*fresh(), 30),
                 "radix_sort_words 2^28 alnum")
     del got
+    hist_err = exact(digit_histograms(words, 30),
+                     digit_histograms_reference(words, 30),
+                     "digit_histograms 2^28 alnum key words")
 
     def composite(_):
         key = (words[0].long() << 30) | words[1].long()
         return idx[torch.sort(key, stable=True).indices]
 
-    return {"max_abs_err": err,
+    return {"max_abs_err": err, "passes": passes, "hist_err": hist_err,
+            "hist_ms": median_ms(lambda _: digit_histograms(words, 30)),
+            "hist_plain_ms": median_ms(
+                lambda _: digit_histograms_reference(words, 30)),
             "ms": median_ms(lambda a: radix_sort_words(*a, 30),
                             setup=fresh),
             "plain_ms": median_ms(
@@ -227,7 +320,7 @@ def compare_sort(text: np.ndarray) -> dict:
             "torch_sort_ms": median_ms(composite)}
 
 
-def compare_refine_sort(n: int = FULL_N) -> dict:
+def compare_refine_sort(n: int) -> dict:
     """radix_sort_words at a refinement round's shape: a non-decreasing
     segment word (28 live bits), two heavily tied 30-bit window words
     and the positions, against its plain version."""
@@ -246,10 +339,11 @@ def compare_refine_sort(n: int = FULL_N) -> dict:
     def fresh():
         return [w.clone() for w in words], iota.clone()
 
-    err = exact(radix_sort_words(*fresh(), live),
-                radix_sort_words_reference(*fresh(), live),
-                "radix_sort_words refinement shape")
-    return {"max_abs_err": err,
+    got, passes = sort_and_count(*fresh(), live)
+    err = exact(got, radix_sort_words_reference(*fresh(), live),
+                f"radix_sort_words refinement shape n={n}")
+    del got
+    return {"max_abs_err": err, "passes": passes,
             "ms": median_ms(lambda a: radix_sort_words(*a, live),
                             setup=fresh),
             "plain_ms": median_ms(
@@ -297,16 +391,26 @@ def check_corpus(name: str, text: np.ndarray) -> dict:
     return route
 
 
+MAIN_PATH_KERNELS = ("pack_ranks", "digit_histograms", "onesweep_pass")
+SPLIT_PASS_KERNELS = ("block_digit_sort", "place_runs")
+COUNTED = {"pack_ranks": pack_ranks, "digit_histograms": digit_histograms,
+           "onesweep_pass": onesweep_pass,
+           "block_digit_sort": block_digit_sort, "place_runs": place_runs}
+
+
 def reset_launches() -> None:
-    pack_ranks.launches = 0
-    block_digit_sort.launches = 0
-    place_runs.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
+    radix_sort_words.passes_run = radix_sort_words.passes_skipped = 0
 
 
 def launches() -> dict:
-    return {"pack_ranks": pack_ranks.launches,
-            "block_digit_sort": block_digit_sort.launches,
-            "place_runs": place_runs.launches}
+    return {k: fn.launches for k, fn in COUNTED.items()}
+
+
+def passes() -> dict:
+    return {"passes_run": radix_sort_words.passes_run,
+            "passes_skipped": radix_sort_words.passes_skipped}
 
 
 def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
@@ -326,9 +430,13 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
     if "PATH:direct" not in report or res.get("path") != "direct":
         raise AssertionError(f"{name} did not take the direct route:\n"
                              + report)
-    missing = [k for k, v in counts.items() if v < 1]
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name}: main path launched no {missing}")
+    old = [k for k in SPLIT_PASS_KERNELS if counts[k]]
+    if old:
+        raise AssertionError(f"{name}: main path launched {old}")
+    counts.update(passes())
     return res, counts, peak
 
 
@@ -441,16 +549,46 @@ def main() -> int:
           f"{k23['k2_ms']:.3f} ms, plain {k23['k2_plain_ms']:.3f} ms; K3: "
           f"kernel {k23['k3_ms']:.3f} ms, plain {k23['k3_plain_ms']:.3f} "
           f"ms ({card})")
+    os_err = {"hist": 0, "pass": 0}
+    for n in (1 << 16, FULL_N):
+        for rbits in (4, 8):
+            for kind_ in ("uniform", "skewed", "constant"):
+                r = compare_onesweep(n, rbits, kind_)
+                os_err["hist"] = max(os_err["hist"], r["hist_err"])
+                os_err["pass"] = max(os_err["pass"], r["pass_err"])
+                torch.cuda.empty_cache()
+    phase("[3] digit_histograms + onesweep_pass: exact at rbits 4 and 8, "
+          "n 2^16 and 2^28, uniform, skewed and constant keys")
+    one = {}
+    for n_cols in (3, 4):
+        one[n_cols] = time_passes(n_cols)
+        torch.cuda.empty_cache()
+        phase(f"[3] one pass n=2^28 rbits=8, {n_cols} int32 columns: "
+              f"onesweep {one[n_cols]['ms']:.3f} ms, K2 + glue + K3 "
+              f"{one[n_cols]['k23_ms']:.3f} ms, plain "
+              f"{one[n_cols]['plain_ms']:.3f} ms; the K2 + glue + K3 pass "
+              f"== the onesweep pass, launches "
+              f"{json.dumps(one[n_cols]['k23_launches'])} ({card})")
     srt = compare_sort(alnum)
-    phase(f"[3] radix_sort_words n=2^28 alnum (k0, k1, idx), 8 passes: "
-          f"exact; kernel {srt['ms']:.3f} ms, plain (stable torch.sort per "
-          f"word) {srt['plain_ms']:.3f} ms, torch.sort of the 60-bit key "
+    phase(f"[3] digit_histograms n=2^28 alnum (k0, k1): exact; kernel "
+          f"{srt['hist_ms']:.3f} ms, plain {srt['hist_plain_ms']:.3f} ms "
+          f"({card})")
+    phase(f"[3] radix_sort_words n=2^28 alnum (k0, k1, idx): exact; passes "
+          f"run/skipped {srt['passes'][0]}/{srt['passes'][1]}; kernel "
+          f"{srt['ms']:.3f} ms, plain (stable torch.sort per word) "
+          f"{srt['plain_ms']:.3f} ms, torch.sort of the 60-bit key "
           f"{srt['torch_sort_ms']:.3f} ms ({card})")
-    rsrt = compare_refine_sort()
-    phase(f"[3] radix_sort_words refinement shape n=2^28 (seg 28 bits, "
-          f"w0, w1 30 bits; idx), 12 passes: exact; kernel "
-          f"{rsrt['ms']:.3f} ms, plain {rsrt['plain_ms']:.3f} ms ({card})")
-    torch.cuda.empty_cache()
+    rsrt = {}
+    for n, tag in ((FULL_N, "2^28"), (1 << 22, "2^22")):
+        rsrt[n] = compare_refine_sort(n)
+        phase(f"[3] radix_sort_words refinement shape n={tag} (seg 28 bits,"
+              f" w0, w1 30 bits; idx), 12 passes: exact; run/skipped "
+              f"{rsrt[n]['passes'][0]}/{rsrt[n]['passes'][1]}; kernel "
+              f"{rsrt[n]['ms']:.3f} ms, plain {rsrt[n]['plain_ms']:.3f} ms "
+              f"({card})")
+        torch.cuda.empty_cache()
+    sort_err = max([srt["max_abs_err"]]
+                   + [r["max_abs_err"] for r in rsrt.values()])
 
     # 4) correctness through the routers
     for n in CHECK_SIZES:
@@ -512,17 +650,31 @@ def main() -> int:
          "launches": words_counts["pack_ranks"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "digit_histograms", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
+         "replaces": "experiments/radix_write.py:213",
+         "launches": words_counts["digit_histograms"],
+         "max_abs_err": max(os_err["hist"], srt["hist_err"]),
+         "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"]},
+        {"name": "onesweep_pass", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
+         "replaces": "experiments/radix_write.py:318",
+         "launches": words_counts["onesweep_pass"],
+         "max_abs_err": max(os_err["pass"], sort_err),
+         "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"]},
         {"name": "block_digit_sort", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["block_digit_sort"],
-         "max_abs_err": max(radix_err["k2"], rsrt["max_abs_err"]),
+         "check_launches": one[3]["k23_launches"]["block_digit_sort"],
+         "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
         {"name": "place_runs", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["place_runs"],
-         "max_abs_err": max(radix_err["k3"], rsrt["max_abs_err"]),
+         "check_launches": one[3]["k23_launches"]["place_runs"],
+         "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {

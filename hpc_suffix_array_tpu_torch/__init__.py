@@ -5,7 +5,7 @@ the prefix-doubling builder (texts up to 4 MiB, and the fallback), the
 direct carried-keys SA+LCP builder (above 4 MiB), PLCP LCP array,
 longest repeated substring and the O(n) validator. Hand-written CUDA
 kernels carry the key folds (``csrc/pack.cu``) and the carried-keys
-radix sort (``csrc/radix.cu``). Every public function takes an explicit
+radix sort (``csrc/onesweep.cu``). Every public function takes an explicit
 ``device``; a CUDA device that is missing raises. This package imports
 neither jax nor the JAX package.
 """

@@ -12,7 +12,7 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      at word offset ``w*spw``; minpad feeds it the table
      ``max(remap - 1, 0)``.
   3. *Sort (device)*: ``kernels/radix.py::radix_sort_words``, the
-     hand-written LSD radix sort of K2 and K3, with the positions as
+     hand-written onesweep LSD radix sort, with the positions as
      payload. Chain mode needs descending positions inside ties: the
      keys and positions are fed in reverse, so the stable sort keeps
      ties in descending position order. That costs one copy of each

@@ -12,7 +12,7 @@ module orders them on the device, as the JAX package does:
      exactly one piece.
   2. *Refine* each piece by rounds: gather the next ``2*spw`` symbols of
      each row as a pair of packed words (``pk2``, two K1 launches), sort
-     the rows by (segment, word 0, word 1) with the K2+K3 radix sort,
+     the rows by (segment, word 0, word 1) with the onesweep radix sort,
      split segments where the words differ, and record the exact LCP of
      each new boundary from the highest set bit of the words' xor.
      Segment ids are ordinals, by ``torch.cumsum`` of the head flags.
@@ -131,7 +131,7 @@ def refine_round(seg, idx, patch, pk2, d: int, spw: int, bits: int):
     """One deepening round over a piece (rows in position order).
 
     Sorts the rows by (segment, word 0, word 1) of their windows at
-    depth ``d``, with the K2+K3 radix sort and the text index as
+    depth ``d``, with the onesweep radix sort and the text index as
     payload; splits segments where the windows differ; records
     ``d + first differing symbol`` at each new boundary inside an old
     segment into the positional ``patch``; returns (seg, idx, patch,

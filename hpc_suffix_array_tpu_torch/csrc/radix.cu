@@ -39,24 +39,14 @@
 
 #include <cuda_runtime.h>
 
+#include "radix_common.cuh"
+
+using namespace sa_radix;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;                    // elements per thread
 constexpr int kBlock = kThreads * kItems;     // 4096 elements per CTA
-constexpr int kMaxRadix = 256;                // rbits <= 8
-constexpr int kMaxCols = 4;                   // up to 3 key words + payload
-
-struct Cols {
-  const int32_t* src[kMaxCols];
-  int32_t* dst[kMaxCols];
-};
-
-__device__ __forceinline__ int digit_of(int32_t key, int shift,
-                                        unsigned mask) {
-  return static_cast<int>((static_cast<uint32_t>(key) >> shift) & mask);
-}
 
 __global__ void __launch_bounds__(kThreads)
 block_digit_sort_kernel(Cols cols, int n_cols, int key_col, long long n,
@@ -116,27 +106,8 @@ block_digit_sort_kernel(Cols cols, int n_cols, int key_col, long long n,
   }
   __syncthreads();
 
-  // Exclusive scan of the block's digit counts in warp 0: each lane sums
-  // a run of ceil(radix/32) digits, a shuffle scan offsets the runs.
-  if (warp == 0) {
-    const int per = (radix + 31) / 32;
-    const int lo = min(lane * per, radix);
-    const int hi = min(lo + per, radix);
-    int sum = 0;
-    for (int d = lo; d < hi; ++d) sum += s_start[d];
-    int incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    int run = incl - sum;
-    for (int d = lo; d < hi; ++d) {
-      const int c = s_start[d];
-      s_start[d] = run;
-      run += c;
-    }
-  }
+  // Exclusive scan of the block's digit counts in warp 0.
+  if (warp == 0) warp_exclusive_scan(s_start, radix, lane);
   __syncthreads();
 
   int dest[kItems];
@@ -187,18 +158,6 @@ place_runs_kernel(Cols cols, int n_cols, int key_col, long long n, int shift,
       cols.dst[c][to] = c == key_col ? key : cols.src[c][p];
     }
   }
-}
-
-Cols make_cols(const void* s0, const void* s1, const void* s2,
-               const void* s3, void* d0, void* d1, void* d2, void* d3) {
-  Cols cols;
-  const void* src[kMaxCols] = {s0, s1, s2, s3};
-  void* dst[kMaxCols] = {d0, d1, d2, d3};
-  for (int c = 0; c < kMaxCols; ++c) {
-    cols.src[c] = static_cast<const int32_t*>(src[c]);
-    cols.dst[c] = static_cast<int32_t*>(dst[c]);
-  }
-  return cols;
 }
 
 }  // namespace

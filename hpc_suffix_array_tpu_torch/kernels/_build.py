@@ -110,6 +110,15 @@ def load() -> ctypes.CDLL:
     lib.sa_place_runs.restype = ctypes.c_int
     lib.sa_radix_block_elems.argtypes = []
     lib.sa_radix_block_elems.restype = ctypes.c_int
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.sa_digit_histograms.argtypes = [ptr] * 3 + [
+        i32, i64, i32, ints, ints, ints, i32, ptr, ptr]
+    lib.sa_digit_histograms.restype = ctypes.c_int
+    lib.sa_onesweep_pass.argtypes = cols + [ptr, ptr, ptr, ctypes.c_uint,
+                                            ptr]
+    lib.sa_onesweep_pass.restype = ctypes.c_int
+    lib.sa_onesweep_tile_elems.argtypes = []
+    lib.sa_onesweep_tile_elems.restype = ctypes.c_int
     lib.sa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,33 +1,49 @@
 """Stable LSD radix sort: the hand-written kernels and their plain versions.
 
-One pass = K2 ``block_digit_sort`` + ``run_offsets`` + K3 ``place_runs``,
-the port of ``experiments/radix_write.py::radix_pass_dma`` (Pallas
-``block_digit_sort`` and ``place_runs``, with XLA scans between them).
-K2 stable-sorts every block of ``BLOCK`` elements by the ``rbits``-bit
-digit of the key column at ``shift`` and emits the per-block digit
-histogram; ``run_offsets`` scans it into each (block, digit) run's
-global and block-local start (plain PyTorch, as XLA was); K3 copies each
-run to its global place. ``radix_sort_words`` chains passes over the
-live bits of 1-3 int32 key words, least significant first, carrying
-every word and an int32 payload.
+``radix_sort_words`` sorts an int32 payload by 1-3 int32 key words on
+the onesweep kernels of ``csrc/onesweep.cu``:
+
+- ``digit_histograms`` reads the key words once and counts the digits
+  of every pass;
+- the plan (``plan_passes``) scans each row into the pass's global digit
+  starts and skips every pass whose digit is the same for all elements
+  (a stable partition by a constant digit is the identity);
+- ``onesweep_pass`` runs each remaining pass in one launch: every tile
+  ranks its elements by digit, finds its global offsets by decoupled
+  look-back over earlier tiles, and writes every column once to its
+  final place.
+
+The onesweep pass computes what ``experiments/radix_write.py::
+radix_pass_dma`` computes: Pallas ``block_digit_sort`` and
+``place_runs`` with XLA scans between them. Their first port, K2
+``block_digit_sort`` + ``run_offsets`` + K3 ``place_runs``
+(``csrc/radix.cu``, ``radix_pass``), stays beside it: K2 stable-sorts
+every block of ``BLOCK`` elements by the digit and emits the per-block
+histogram, ``run_offsets`` scans it into each (block, digit) run's
+global and block-local start, and K3 copies each run to its global
+place. The sort no longer runs them.
 
 A pass carries up to four int32 columns; digits are read from the key as
 uint32, so keys order as unsigned integers. ``rbits`` 4 is the TPU
 version's digit (the parity test); the builder uses ``RBITS = 8``.
 
-Each wrapper launches ``csrc/radix.cu`` for CUDA tensors and adds one to
-its ``launches``; for CPU tensors it runs its ``*_reference``. There is
-no fallback between the two: a CUDA call launches the kernel or raises.
+Each wrapper launches its kernel for CUDA tensors and adds one to its
+``launches``; for CPU tensors it runs its ``*_reference``. There is no
+fallback between the two: a CUDA call launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels import _build
 
 BLOCK = 4096          # elements per K2/K3 block (csrc/radix.cu kBlock)
+TILE = 4096           # elements per onesweep tile (csrc/onesweep.cu kTile)
 MAX_COLS = 4          # columns one pass carries (3 key words + payload)
+MAX_RADIX = 256       # look-back status words per tile (rbits <= 8)
 RBITS = 8             # digit width of the builder's sort
 
 
@@ -200,8 +216,9 @@ def radix_pass(cols, key_col: int, shift: int, rbits: int, staging=None):
 
 
 def _check_words(words, payload, live_bits) -> list[int]:
-    """Checks the sort's columns; returns the live bits of each word
-    (``live_bits``: one int for every word, or one entry each)."""
+    """Checks the sort's columns (``payload`` may be None); returns the
+    live bits of each word (``live_bits``: one int for every word, or
+    one entry each)."""
     if not 1 <= len(words) <= MAX_COLS - 1:
         raise ValueError(f"need 1..{MAX_COLS - 1} key words, got "
                          f"{len(words)}")
@@ -213,8 +230,213 @@ def _check_words(words, payload, live_bits) -> list[int]:
     for b in per_word:
         if not 1 <= b <= 32:
             raise ValueError(f"live_bits={b} outside [1, 32]")
-    _check(list(words) + [payload], 0, 0, 1)
+    _check(list(words) + ([] if payload is None else [payload]), 0, 0, 1)
     return per_word
+
+
+def _check_rbits(rbits: int) -> None:
+    if not 1 <= rbits <= 8:
+        raise ValueError(f"need 1 <= rbits <= 8, got {rbits}")
+
+
+def n_tiles(n: int) -> int:
+    return -(-n // TILE)
+
+
+def pass_plan(per_word: list[int], rbits: int) -> list[tuple[int, int, int]]:
+    """(word, shift, bits) of each pass, in the order the sort runs
+    them: the least significant word first, each word's low digit first;
+    a word's last digit takes only its remaining live bits."""
+    return [(w, shift, min(rbits, per_word[w] - shift))
+            for w in reversed(range(len(per_word)))
+            for shift in range(0, per_word[w], rbits)]
+
+
+def _histograms_reference(words, plan, rbits: int) -> torch.Tensor:
+    radix = 1 << rbits
+    hist = torch.zeros((len(plan), radix), dtype=torch.int32,
+                       device=words[0].device)
+    for p, (w, shift, bits) in enumerate(plan):
+        hist[p] = torch.bincount(_digits(words[w], shift, bits),
+                                 minlength=radix)
+    return hist
+
+
+def digit_histograms_reference(words, live_bits, rbits: int = RBITS):
+    """Plain ``digit_histograms``: one ``bincount`` per pass."""
+    per_word = _check_words(words, None, live_bits)
+    _check_rbits(rbits)
+    return _histograms_reference(words, pass_plan(per_word, rbits), rbits)
+
+
+def _histograms(words, plan, rbits: int) -> torch.Tensor:
+    """The digit_histograms kernel over ``plan`` (CUDA words)."""
+    n, dev = words[0].shape[0], words[0].device
+    hist = torch.zeros((len(plan), 1 << rbits), dtype=torch.int32,
+                       device=dev)
+    if n == 0:
+        return hist
+    lib = _build.load()
+
+    def field(i):
+        return (ctypes.c_int * len(plan))(*(step[i] for step in plan))
+
+    ptrs = [w.data_ptr() for w in words] + [None] * (MAX_COLS - 1
+                                                     - len(words))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_digit_histograms(*ptrs, len(words), n, len(plan),
+                                      field(0), field(1), field(2), rbits,
+                                      hist.data_ptr(), stream)
+    _build.check(err, "sa_digit_histograms")
+    digit_histograms.launches += 1
+    return hist
+
+
+def digit_histograms(words, live_bits, rbits: int = RBITS):
+    """Global digit counts of every pass that ``radix_sort_words(words,
+    ..., live_bits, rbits)`` runs: int32[P, 2^rbits], one row per pass in
+    ``pass_plan`` order, each counting the pass's own digit (``min(rbits,
+    live - shift)`` bits). On CUDA one kernel reads each word once."""
+    per_word = _check_words(words, None, live_bits)
+    _check_rbits(rbits)
+    plan = pass_plan(per_word, rbits)
+    if _device_kind(words[0], "digit_histograms") == "cpu":
+        return _histograms_reference(words, plan, rbits)
+    return _histograms(words, plan, rbits)
+
+
+digit_histograms.launches = 0
+
+
+def plan_passes(hist: torch.Tensor):
+    """(starts, run) from the passes' histograms ``hist`` int32[P, R]:
+    ``starts`` int32[P, R] is each row's exclusive scan, every digit's
+    first global place; ``run[p]`` is False where all elements share one
+    digit in pass p, which makes that pass the identity, so it is
+    skipped. One device-to-host read of P flags."""
+    starts = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+    run = ((hist != 0).sum(1) > 1).tolist()
+    return starts, run
+
+
+def onesweep_pass_reference(cols, key_col: int, shift: int, rbits: int,
+                            out=None):
+    """Plain onesweep pass: a stable argsort of the digit (read as
+    uint32) and a gather of every column, into ``out`` when given."""
+    _check(cols, key_col, shift, rbits)
+    order = torch.sort(_digits(cols[key_col], shift, rbits),
+                       stable=True).indices
+    moved = [c[order] for c in cols]
+    if out is None:
+        return moved
+    for o, m in zip(out, moved):
+        o.copy_(m)
+    return out
+
+
+class LookBack:
+    """Scratch of the onesweep passes of one sort: a zeroed 64-bit
+    status word per (tile, digit) and a zeroed tile counter per pass.
+    Each pass tags its status words with its own epoch (1, 2, ...), so
+    one zeroing, at the first pass, serves every pass of the sort."""
+
+    def __init__(self, n: int, passes: int, device):
+        self.n, self.passes, self.device = n, passes, device
+        self.epoch = 0
+        self.status = self.counters = None
+
+    def next_pass(self):
+        """(status, tile counter, epoch) of the next pass."""
+        if self.epoch == self.passes:
+            raise RuntimeError(f"LookBack holds {self.passes} passes")
+        if self.status is None:
+            self.status = torch.zeros(n_tiles(self.n) * MAX_RADIX,
+                                      dtype=torch.int64, device=self.device)
+            self.counters = torch.zeros(self.passes, dtype=torch.int32,
+                                        device=self.device)
+        self.epoch += 1
+        return self.status, self.counters[self.epoch - 1], self.epoch
+
+
+def _check_pass_buffers(cols, out, digit_starts, rbits: int) -> None:
+    n, dev = cols[0].shape[0], cols[0].device
+    if len(out) != len(cols):
+        raise ValueError(f"{len(out)} output columns for {len(cols)}")
+    for o in out:
+        if (o.dtype != torch.int32 or tuple(o.shape) != (n,)
+                or o.device != dev or not o.is_contiguous()):
+            raise TypeError(f"output columns must be contiguous int32[{n}] "
+                            f"on {dev}")
+        if any(o.data_ptr() == c.data_ptr() for c in cols):
+            raise ValueError("output columns must not be input columns")
+    if (digit_starts.dtype != torch.int32 or digit_starts.dim() != 1
+            or digit_starts.shape[0] < 1 << rbits
+            or digit_starts.device != dev
+            or not digit_starts.is_contiguous()):
+        raise TypeError(f"digit_starts must be contiguous int32[>= "
+                        f"{1 << rbits}] on {dev}")
+
+
+def onesweep_pass(cols, key_col: int, shift: int, rbits: int, digit_starts,
+                  lookback: LookBack, out=None):
+    """One stable LSD pass of ``cols`` by the ``rbits``-bit digit of
+    ``cols[key_col]`` at ``shift``, written to ``out`` (new columns when
+    None; never the inputs). ``digit_starts`` int32[>= 2^rbits] holds
+    every digit's first global place (a row of ``plan_passes``' starts);
+    ``lookback`` is the sort's ``LookBack``. On CPU tensors both are
+    unused: the plain version needs neither."""
+    _check(cols, key_col, shift, rbits)
+    if _device_kind(cols[0], "onesweep_pass") == "cpu":
+        return onesweep_pass_reference(cols, key_col, shift, rbits, out)
+    n, dev = cols[0].shape[0], cols[0].device
+    out = [torch.empty_like(c) for c in cols] if out is None else out
+    _check_pass_buffers(cols, out, digit_starts, rbits)
+    if n == 0:
+        return out
+    if lookback.n < n:
+        raise ValueError(f"LookBack for n={lookback.n} used at n={n}")
+    status, counter, epoch = lookback.next_pass()
+    lib = _build.load()
+    if lib.sa_onesweep_tile_elems() != TILE:
+        raise RuntimeError("csrc/onesweep.cu kTile differs from radix.TILE")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_onesweep_pass(*_ptrs(cols), *_ptrs(out), len(cols),
+                                   key_col, n, shift, rbits,
+                                   digit_starts.data_ptr(),
+                                   status.data_ptr(), counter.data_ptr(),
+                                   epoch, stream)
+    _build.check(err, "sa_onesweep_pass")
+    onesweep_pass.launches += 1
+    return out
+
+
+onesweep_pass.launches = 0
+
+
+def sort_passes(cols, per_word: list[int], rbits: int, histograms,
+                one_pass) -> tuple[int, int]:
+    """The pass loop of ``radix_sort_words``, in place on ``cols`` (the
+    key words, most significant first, then the payload): the
+    histograms of every pass (``histograms(words, per_word, rbits)``),
+    the plan, then ``one_pass(src, key_col, shift, bits, digit_starts,
+    dst)`` for each pass that is not skipped, ping-ponging between
+    ``cols`` and one staging set, and one copy back when the number of
+    executed passes is odd. Returns (executed, skipped)."""
+    plan = pass_plan(per_word, rbits)
+    starts, run = plan_passes(histograms(cols[:-1], per_word, rbits))
+    todo = [p for p in range(len(plan)) if run[p]]
+    if todo:
+        src, dst = cols, [torch.empty_like(c) for c in cols]
+        for p in todo:
+            w, shift, bits = plan[p]
+            one_pass(src, w, shift, bits, starts[p], dst)
+            src, dst = dst, src
+        if src is not cols:
+            for c, s in zip(cols, src):
+                c.copy_(s)
+    return len(todo), len(plan) - len(todo)
 
 
 def radix_sort_words_reference(words, payload, live_bits):
@@ -239,16 +461,28 @@ def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
 
     Sorts IN PLACE: the inputs are one of the two buffer sets the passes
     ping-pong between, so the sort needs one staging set on top.
-    Returns (words, payload), sorted. On CUDA tensors it runs
-    ceil(live_bits / rbits) K2+K3 passes per word; on CPU tensors
+    Returns (words, payload), sorted. On CUDA tensors it runs one
+    digit_histograms launch and one onesweep_pass launch per pass whose
+    digit is not constant, of ceil(live_bits / rbits) per word, and adds
+    to ``passes_run`` and ``passes_skipped``; on CPU tensors it runs
     ``radix_sort_words_reference``."""
     per_word = _check_words(words, payload, live_bits)
+    _check_rbits(rbits)
     if _device_kind(payload, "radix_sort_words") == "cpu":
         return radix_sort_words_reference(words, payload, per_word)
     cols = list(words) + [payload]
-    staging = [torch.empty_like(c) for c in cols]
-    for w in reversed(range(len(words))):
-        for shift in range(0, per_word[w], rbits):
-            radix_pass(cols, w, shift, min(rbits, per_word[w] - shift),
-                       staging)
+    lookback = LookBack(payload.shape[0], len(pass_plan(per_word, rbits)),
+                        payload.device)
+
+    def one_pass(src, key_col, shift, bits, digit_starts, dst):
+        onesweep_pass(src, key_col, shift, bits, digit_starts, lookback, dst)
+
+    run, skipped = sort_passes(cols, per_word, rbits, digit_histograms,
+                               one_pass)
+    radix_sort_words.passes_run += run
+    radix_sort_words.passes_skipped += skipped
     return cols[:-1], cols[-1]
+
+
+radix_sort_words.passes_run = 0
+radix_sort_words.passes_skipped = 0

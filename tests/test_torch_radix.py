@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels.radix import (
-    BLOCK, block_digit_sort, block_digit_sort_reference, place_runs,
-    place_runs_reference, radix_pass, radix_sort_words,
+    BLOCK, block_digit_sort, block_digit_sort_reference, onesweep_pass,
+    place_runs, place_runs_reference, radix_pass, radix_sort_words,
     radix_sort_words_reference, run_offsets)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -257,15 +257,20 @@ def test_radix_sort_words_matches_plain_on_card(nw, rbits):
 @pytest.mark.cuda
 def test_radix_sort_words_per_word_live_bits_on_card():
     """A refinement round's shape: (segment, word 0, word 1; idx) at 22,
-    30 and 30 live bits, 11 passes, against the plain version."""
+    30 and 30 live bits, 11 passes (run or skipped) on the onesweep
+    kernels, against the plain version."""
     _need_cuda()
     n = 1 << 20
     words = _mixed_words([22, 30, 30], n, 3)
     pay = np.arange(n, dtype=np.int32)
-    before = block_digit_sort.launches
+    before = (radix_sort_words.passes_run, radix_sort_words.passes_skipped,
+              onesweep_pass.launches, block_digit_sort.launches)
     got_w, got_p = radix_sort_words([c.cuda() for c in _cols(*words)],
                                     _cols(pay)[0].cuda(), [22, 30, 30])
-    assert block_digit_sort.launches == before + 11
+    run = radix_sort_words.passes_run - before[0]
+    assert run + radix_sort_words.passes_skipped - before[1] == 11
+    assert onesweep_pass.launches - before[2] == run
+    assert block_digit_sort.launches == before[3]
     want_w, want_p = radix_sort_words_reference(
         [c.cuda() for c in _cols(*words)], _cols(pay)[0].cuda(),
         [22, 30, 30])

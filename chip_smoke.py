@@ -35,20 +35,37 @@ Drives the port's main paths on the card and checks them:
   7. the CLI's run() on 2^28 bytes of words (natural-text proxy),
      validated, on the direct route with refinement, counting the
      kernels' launches; then doubling plus PLCP on the same text, which
-     must give the same SA and LCP byte for byte.
+     must give the same SA and LCP byte for byte;
+  8. the MSD bucket builder: (a) build_suffix_array_big at 2^24 on the
+     four corpora of phase 4 (chunks of 2^22, buckets of 2^21: 4
+     chunks, 8 or more buckets) against host SA-IS and Kasai; (b)
+     build_sa_lcp on the 2^28 random alnum of phase 5 with the MSD
+     forced (SA_DIRECT_CROSS=0) against the direct route, SA and LCP
+     byte for byte, both timed warm; (c) the CLI's run() on 2^30 bytes
+     of random alnum (made on the card from a seeded generator), which
+     must take the MSD route, validate, and stay below the direct
+     route's 56.00 GiB peak at 2^30 (PERF.md). Each MSD run counts the
+     kernels' launches: K1, digit_histograms and onesweep_pass, and no
+     K2 or K3.
 
 Any failed phase raises and the script exits nonzero. The line before
 the last is a JSON summary of the kernels, each row's ``launches`` read
 from the words run of phase 7 (K2 and K3 read 0 there: the sort no
 longer runs them; their ``check_launches`` are those of the one K2 +
-glue + K3 pass of phase 3 that is held against the onesweep pass); the
-last line is {"ok": true, "device": {...}}.
+glue + K3 pass of phase 3 that is held against the onesweep pass), with
+its bound: the larger of the bytes the timed call must move (each input
+read once, each output written once) over 3.35 TB/s and its integer
+operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
+non-tensor float32 rate, which the table gives in place of an int32
+rate), and no library time (no single PyTorch call computes any of
+these functions); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -61,8 +78,10 @@ from hpc_suffix_array_tpu_torch import (
     build_lcp_array, build_suffix_array, find_longest_repeated_substring,
     is_valid_suffix_array, native)
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
-from hpc_suffix_array_tpu_torch.core.bigsort import direct_keys
-from hpc_suffix_array_tpu_torch.core.lcp import lcp_from_plcp, plcp_kernel
+from hpc_suffix_array_tpu_torch.core.bigsort import (
+    build_suffix_array_big, direct_keys)
+from hpc_suffix_array_tpu_torch.core.lcp import (
+    build_sa_lcp, lcp_from_plcp, plcp_kernel)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, as_byte_tensor, build_suffix_array_doubling)
 from hpc_suffix_array_tpu_torch.datasets import (
@@ -78,7 +97,19 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     radix_sort_words_reference, run_offsets)
 
 FULL_N = 1 << 28
+MSD_N = 1 << 30
 CHECK_SIZES = (1 << 22, 1 << 24)
+# The card's peaks (H100 SXM data sheet): HBM
+# bytes/s, and the float32 rate outside the tensor cores, which stands
+# in for the int32 ALU rate the table does not give.
+HBM_BPS = 3.35e12
+ALU_OPS = 67e12
+# Peak of the direct route at 2^30 random alnum, measured on one H100
+# (PERF.md).
+DIRECT_PEAK_2E30 = 56.00 * 2**30
+ALNUM = np.frombuffer(
+    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
+    np.uint8)
 SEED = 0
 # (n, bits, h0) of the kernel tests, plus an n that is not a multiple of 128.
 SMALL_CASES = [(128, 6, 5), (128 * 8, 3, 10), (128 * 9, 9, 3),
@@ -141,6 +172,27 @@ def exact(got, want, what: str) -> int:
         raise AssertionError(f"{what}: kernel disagrees with its plain "
                              f"version, max abs err {err}")
     return err
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """bound_ms and bound_by of a call that moves ``n_bytes`` and does
+    ``ops`` integer operations."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = ops / ALU_OPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def alnum_on_card(n: int, seed: int) -> np.ndarray:
+    """Random alnum bytes made on the card from a seeded generator and
+    copied to the host once."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, len(ALNUM), (n,), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    lut = torch.from_numpy(ALNUM.copy()).cuda()
+    return torch.cat([lut[codes[i:i + (1 << 28)].long()]
+                      for i in range(0, n, 1 << 28)]).cpu().numpy()
 
 
 def compare_pack(text: np.ndarray, remap: np.ndarray, bits: int, h0: int,
@@ -351,8 +403,9 @@ def compare_refine_sort(n: int) -> dict:
                 setup=fresh)}
 
 
-def check_corpus(name: str, text: np.ndarray) -> dict:
-    """SA, LCP, LRS and validator on the card against the host oracles."""
+def check_corpus(name: str, text: np.ndarray):
+    """SA, LCP, LRS and validator on the card against the host oracles;
+    returns (route, SA-IS array, Kasai array)."""
     t0 = time.perf_counter()
     info: dict = {}
     text_dev = as_byte_tensor(text, "cuda")
@@ -388,7 +441,7 @@ def check_corpus(name: str, text: np.ndarray) -> dict:
     phase(f"[4] {name} n={len(text)}: SA == SA-IS, LCP == Kasai, LRS "
           f"length {len(lrs or b'')} == oracle, validator True/False ok; "
           f"route {json.dumps(route)}; device pipeline {dt:.3f} s")
-    return route
+    return route, want_sa, want_lcp
 
 
 MAIN_PATH_KERNELS = ("pack_ranks", "digit_histograms", "onesweep_pass")
@@ -413,9 +466,20 @@ def passes() -> dict:
             "passes_skipped": radix_sort_words.passes_skipped}
 
 
-def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
-    """cli.run with validation on the direct route; returns (results,
-    launches, peak bytes). Fails if the route fell back to doubling."""
+def check_launches(counts: dict, name: str) -> None:
+    """The main-path kernels ran, K2 and K3 did not."""
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{name}: main path launched no {missing}")
+    old = [k for k in SPLIT_PASS_KERNELS if counts[k]]
+    if old:
+        raise AssertionError(f"{name}: main path launched {old}")
+
+
+def run_cli(text: np.ndarray, name: str, arrays: dict | None = None,
+            path: str = "direct"):
+    """cli.run with validation on route ``path``; returns (results,
+    launches, peak bytes). Fails if the build took another route."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
@@ -427,15 +491,10 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None):
     report = buf.getvalue()
     if "Valid suffix array: YES" not in report:
         raise AssertionError(f"{name} not validated:\n" + report)
-    if "PATH:direct" not in report or res.get("path") != "direct":
-        raise AssertionError(f"{name} did not take the direct route:\n"
+    if f"PATH:{path}\n" not in report or res.get("path") != path:
+        raise AssertionError(f"{name} did not take the {path} route:\n"
                              + report)
-    missing = [k for k in MAIN_PATH_KERNELS if counts[k] < 1]
-    if missing:
-        raise AssertionError(f"{name}: main path launched no {missing}")
-    old = [k for k in SPLIT_PASS_KERNELS if counts[k]]
-    if old:
-        raise AssertionError(f"{name}: main path launched {old}")
+    check_launches(counts, name)
     counts.update(passes())
     return res, counts, peak
 
@@ -473,6 +532,74 @@ def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
           f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak "
           f"{peak / 2**30:.2f} GiB; pack launches {pack_ranks.launches} "
           f"({card})")
+
+
+def msd_at_2e24(oracles: dict, card: str) -> None:
+    """[8a] build_suffix_array_big at 2^24 on the four corpora of phase
+    4, with 4 chunks and 8 or more buckets, against SA-IS and Kasai."""
+    for name, gen in CORPORA:
+        text = gen(CHECK_SIZES[-1], SEED)
+        want_sa, want_lcp = oracles[name]
+        info: dict = {}
+        reset_launches()
+        sa, lcp = build_suffix_array_big(
+            text, device="cuda", info=info, want_lcp=True,
+            chunk_elems=1 << 22, target_bucket=1 << 21)
+        counts = launches()
+        if not (np.array_equal(sa.cpu().numpy(), want_sa)
+                and np.array_equal(lcp.cpu().numpy(), want_lcp)):
+            raise AssertionError(f"MSD 2^24 {name}: SA or LCP differs "
+                                 "from SA-IS/Kasai")
+        if info["n_buckets_run"] < 8:
+            raise AssertionError(f"MSD 2^24 {name}: only "
+                                 f"{info['n_buckets_run']} buckets")
+        check_launches(counts, f"MSD 2^24 {name}")
+        keep = {k: info.get(k) for k in (
+            "n_buckets_run", "chain_mode", "periods", "n_patched", "rerun",
+            "refine_members", "phase_device_ms")}
+        phase(f"[8a] MSD n=2^24 {name}, 4 chunks: SA == SA-IS, LCP == "
+              f"Kasai; {json.dumps(keep)}; launches {json.dumps(counts)} "
+              f"({card})")
+
+
+def msd_against_direct(text: np.ndarray, card: str) -> None:
+    """[8b] build_sa_lcp on 2^28 random alnum with the MSD forced
+    (SA_DIRECT_CROSS=0) against the direct route: SA and LCP byte for
+    byte, each timed warm in the order direct, MSD, MSD, direct."""
+    t = as_byte_tensor(text, "cuda")
+    ms = {"direct": [], "msd": []}
+    out, counts = {}, None
+    for cross in (None, "0", None, "0", "0", None):
+        if cross is None:
+            os.environ.pop("SA_DIRECT_CROSS", None)
+        else:
+            os.environ["SA_DIRECT_CROSS"] = cross
+        info: dict = {}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_now = build_sa_lcp(text, device="cuda", info=info, text_dev=t)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        want = "direct" if cross is None else "msd"
+        if info["path"] != want:
+            raise AssertionError(f"2^28 alnum took {info['path']}, not "
+                                 f"{want}")
+        if want == "msd":
+            counts = launches()
+            check_launches(counts, "MSD 2^28 alnum")
+        if want in out:
+            ms[want].append(dt)       # the first run of each is a warm-up
+        out[want] = out_now
+    os.environ.pop("SA_DIRECT_CROSS", None)
+    if not (torch.equal(out["msd"][0], out["direct"][0])
+            and torch.equal(out["msd"][1], out["direct"][1])):
+        raise AssertionError("2^28 alnum: MSD and direct SA+LCP differ")
+    phase(f"[8b] build_sa_lcp n=2^28 random alnum, MSD forced: SA and LCP "
+          f"== the direct route's, byte for byte; warm ms direct "
+          f"{[round(x, 2) for x in ms['direct']]}, MSD "
+          f"{[round(x, 2) for x in ms['msd']]}; MSD launches "
+          f"{json.dumps(counts)} ({card})")
 
 
 def main() -> int:
@@ -591,9 +718,12 @@ def main() -> int:
                    + [r["max_abs_err"] for r in rsrt.values()])
 
     # 4) correctness through the routers
+    oracles = {}
     for n in CHECK_SIZES:
         for name, gen in CORPORA:
-            route = check_corpus(name, gen(n, SEED))
+            route, want_sa, want_lcp = check_corpus(name, gen(n, SEED))
+            if n == CHECK_SIZES[-1]:
+                oracles[name] = (want_sa, want_lcp)
             if name == "words" and n > (1 << 22) and (
                     route["path"] != "direct" or route["declined"]
                     or not route["refine_members"]):
@@ -641,41 +771,65 @@ def main() -> int:
           f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
           f"launches {json.dumps(words_counts)} ({card})")
     against_doubling(words, arrays, "[7]", "words", card)
-    del arrays
+    del arrays, words
+    torch.cuda.empty_cache()
 
+    # 8) the MSD bucket builder
+    msd_at_2e24(oracles, card)
+    msd_against_direct(alnum, card)
+    del alnum
+    torch.cuda.empty_cache()
+    big = alnum_on_card(MSD_N, SEED)
+    res, counts, peak = run_cli(big, "random_alnum_2^30", path="msd")
+    del big
+    if peak >= DIRECT_PEAK_2E30:
+        raise AssertionError(f"MSD 2^30 peak {peak / 2**30:.2f} GiB is not "
+                             "below the direct route's 56.00 GiB")
+    phase(f"[8c] cli.run n=2^30 random alnum: Valid suffix array: YES; "
+          f"PATH:{res['path']}; SA_TIME {res['sa_time']:.3f} s, TOTAL_TIME "
+          f"{res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(counts)} ({card})")
+
+    n = FULL_N
+    tiles = n // 4096
     print(json.dumps({"kernels": [
         {"name": "pack_ranks", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
          "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
          "launches": words_counts["pack_ranks"],
          "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         **bound(n + 4 * n + 256 * 4, 3 * 5 * n)},
         {"name": "digit_histograms", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["digit_histograms"],
          "max_abs_err": max(os_err["hist"], srt["hist_err"]),
-         "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"]},
+         "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"],
+         **bound(2 * 4 * n + 8 * 256 * 4, 4 * 8 * n)},
         {"name": "onesweep_pass", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
-         "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"]},
+         "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
+         **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
         {"name": "block_digit_sort", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["block_digit_sort"],
          "check_launches": one[3]["k23_launches"]["block_digit_sort"],
          "max_abs_err": radix_err["k2"],
-         "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
+         "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
+         **bound(2 * 3 * 4 * n + tiles * 256 * 4, 8 * n)},
         {"name": "place_runs", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["place_runs"],
          "check_launches": one[3]["k23_launches"]["place_runs"],
          "max_abs_err": radix_err["k3"],
-         "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
+         "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
+         **bound(2 * 3 * 4 * n + 2 * tiles * 256 * 4, 4 * n)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,10 +29,42 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      tie refinement (``core/refine.py``), whose remainder the same host
      pass closes.
 
-Not ported here: the MSD builder, ``codes_from_bytes``/``byte_ranges``
-(workarounds for XLA's per-element gather cost; the pack kernel reads
-the remap from shared memory) and ``bucket_size`` padding (no
-``PAD_KEY`` rows exist).
+The MSD bucket builder (``prepare_big``/``execute_big``, the JAX
+package's carried-keys bucket sort for texts past the direct route)
+serves the sizes one whole-text sort cannot hold:
+
+  1. *Plan (host)*: the same packing; bucket edges are quantiles of
+     sampled k0 words (``sample_edges``; (k0, k1) pairs when k0 alone
+     is too skewed), at most ``MAX_RADIX`` buckets.
+  2. *Count (device)*: per chunk of ``m`` positions, K1 packs k0 (and
+     k1 for pair edges), ``torch.searchsorted`` gives each position's
+     bucket id and ``torch.bincount`` the chunk's bucket counts; one host
+     read of the (chunks, buckets) table.
+  3. *Scatter (device)*: bucket b's region of the slabs starts at the
+     count of all positions in buckets below b, which is also its final
+     SA range. One ``onesweep_pass`` per chunk partitions (bid, k0, k1,
+     idx) by the bucket id straight into those full-length slabs at the
+     chunk's offsets, stable and in chunk order, so every region holds
+     its positions ascending.
+  4. *Buckets (device)*: each region is sorted in place by
+     ``radix_sort_words`` and finished by ``post_sort``, row 0 against
+     the previous bucket's last keys; chain mode reverses a region before
+     its sort. The tie flags go to one bool[n], the LCP into the dead
+     bucket-id slab; after the last bucket the idx slab is the SA.
+  5. *Residue, chain mode, refinement*: as in the direct build, with
+     the tie counts per bucket.
+
+The JAX package's count-free layout (fill-fraction capacities, run
+boundaries searched in each sorted chunk, the ``count_free_overflow``
+rerun), its spill-forward W windows and slab gaps and its
+``optimization_barrier`` fences worked around XLA's costs (no masked
+in-place writes, no cheap scans) and are not ported: an exact count is
+one K1 launch and a ``bincount`` per chunk here, and the onesweep pass
+writes every run to its exact place.
+
+Not ported here: ``codes_from_bytes``/``byte_ranges`` (workarounds for
+XLA's per-element gather cost; the pack kernel reads the remap from
+shared memory) and ``bucket_size`` padding (no ``PAD_KEY`` rows exist).
 """
 
 from __future__ import annotations
@@ -40,6 +72,8 @@ from __future__ import annotations
 import functools
 import math
 import os
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -47,10 +81,17 @@ import torch
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
-from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+from hpc_suffix_array_tpu_torch.kernels.radix import (
+    MAX_RADIX, LookBack, onesweep_pass, radix_sort_words)
 
 RESIDUE_SLOTS = 1 << 15          # extracted tie members (the JAX cap)
 RESIDUE_WIN = 64     # bytes compared vectorized before the exact fallback
+# Largest text the direct builder takes (``SA_DIRECT_MAX``) unless the
+# router prefers the MSD builder above ``SA_DIRECT_CROSS``. On an H100
+# 80GB HBM3 (700 W) the direct build beat the MSD build at 2^26, 2^27
+# and 2^28 random alnum (PERF.md), so the crossover is the direct cap.
+DIRECT_MAX = 1 << 28
+DIRECT_CROSS = DIRECT_MAX
 # Repeat-estimate threshold for "route a mid-size text to the carried
 # keys machinery": 3 words x max spw-per-word bound (~16).
 DEEP_REPEAT_EST = 3 * 16
@@ -171,7 +212,7 @@ def direct_feasible(arr: np.ndarray, n: int,
     two or three words. The JAX package compares its padded sort length
     (``bucket_size(n)``) with the cap; the port sorts n elements and
     compares n, which is the same test at the default cap."""
-    if n > int(os.environ.get("SA_DIRECT_MAX", 1 << 28)):
+    if n > int(os.environ.get("SA_DIRECT_MAX", DIRECT_MAX)):
         return False
     return (residue_feasible(arr, n, RESIDUE_SLOTS / 4, est_repeat,
                              sigma=sigma)
@@ -182,14 +223,14 @@ def direct_feasible(arr: np.ndarray, n: int,
 def prefer_direct(arr: np.ndarray, n: int,
                   est_repeat: int | None = None,
                   sigma: int | None = None) -> bool:
-    """The JAX package's choice between its direct and MSD builders:
-    direct when feasible up to ``SA_DIRECT_CROSS`` (2^27, a crossover
-    measured on a TPU v5e), and above it only for chain-class texts.
-    The port has no MSD builder, so its routers gate on
-    ``direct_feasible`` and do not call this."""
+    """The routers' choice between the direct and MSD builders (the JAX
+    package's rule): direct when feasible up to ``SA_DIRECT_CROSS``, and
+    above it only for chain-class texts. The JAX package's crossover,
+    2^27, was measured on a TPU v5e; the port's default,
+    ``DIRECT_CROSS``, on an H100 (see its comment)."""
     if not direct_feasible(arr, n, est_repeat, sigma=sigma):
         return False
-    if n <= int(os.environ.get("SA_DIRECT_CROSS", 1 << 27)):
+    if n <= int(os.environ.get("SA_DIRECT_CROSS", DIRECT_CROSS)):
         return True
     if est_repeat is None:
         est_repeat = estimate_repeat_len(arr)
@@ -203,11 +244,23 @@ def direct_keys(text: torch.Tensor, remap: np.ndarray, bits: int, spw: int,
     """The ``nw`` carried key words (int32[n] each) of uint8 ``text``:
     word w packs the spw codes from i + w*spw, 0 past n (the JAX
     package's ``_direct_keys`` without its PAD_KEY rows)."""
-    table = np.maximum(remap - 1, 0) if minpad else remap
-    table_t = torch.as_tensor(table.astype(np.int32)).to(text.device)
+    table_t = key_table(remap, minpad, text.device)
     n = text.shape[0]
     return [pack_ranks(text, table_t, bits, spw, n, offset=w * spw)
             for w in range(nw)]
+
+
+def key_table(remap: np.ndarray, minpad: bool, device) -> torch.Tensor:
+    """The pack kernel's int32[256] code table of the carried keys:
+    ``remap`` (codes 1..sigma, 0 past the end), or under minpad
+    ``max(remap - 1, 0)`` (codes 0..sigma-1, past the end the minimum)."""
+    table = np.maximum(remap - 1, 0) if minpad else remap
+    return torch.as_tensor(table.astype(np.int32)).to(device)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _high_bit(x: torch.Tensor) -> torch.Tensor:
@@ -224,23 +277,28 @@ def _high_bit(x: torch.Tensor) -> torch.Tensor:
 
 
 def post_sort(words, s_idx: torch.Tensor, n: int, spw: int, bits: int,
-              desc_idx: bool, want_lcp: bool):
-    """The pass after the sort: the JAX package's ``_bucket_sort`` (as
-    one whole-text bucket) and ``_direct_sort3`` in one, over 2 or 3
-    sorted key words.
+              desc_idx: bool, want_lcp: bool, prev=None):
+    """The pass after the sort: the JAX package's ``_bucket_sort`` (one
+    bucket of the MSD build, or the whole text as one bucket) and
+    ``_direct_sort3`` in one, over 2 or 3 sorted key words of m rows.
 
-    Returns (tie bool[n], stats int64[3] = (tie count, dmax, delta_ok),
-    lcp int32[n] or None). ``tie[j]``: row j's key words equal row
-    j-1's. ``delta`` is the index step along ties (descending in chain
-    mode); ``delta_ok`` says every tie has the same step >= 1. The LCP
-    of a non-tied pair is the first differing symbol of the keys, from
-    the highest set bit of their xor; row 0 compares with a -1 sentinel,
-    whose bit 31 puts the symbol below 0, clamped to 0. In chain mode a
-    tied pair's LCP is ``n - prev_idx`` (consecutive chain members)."""
+    Returns (tie bool[m], stats int64[3] = (tie count, dmax, delta_ok),
+    lcp int32[m] or None). ``tie[j]``: row j's key words equal row
+    j-1's; row 0 never ties (buckets differ in their keys). ``delta`` is
+    the index step along ties (descending in chain mode); ``delta_ok``
+    says every tie has the same step >= 1. The LCP of a non-tied pair is
+    the first differing symbol of the keys, from the highest set bit of
+    their xor. Row 0 compares with ``prev``, the key words of the row
+    before it (the previous live bucket's last row: one-element tensors,
+    one per word), or with a -1 sentinel when None, whose bit 31 puts
+    the symbol below 0, clamped to 0. ``n`` is the text length: in chain
+    mode a tied pair's LCP is ``n - prev_idx`` (consecutive chain
+    members)."""
     dev = s_idx.device
     big = 1 << 30
-    tie = torch.zeros(n, dtype=torch.bool, device=dev)
-    if n > 1:
+    m = s_idx.shape[0]
+    tie = torch.zeros(m, dtype=torch.bool, device=dev)
+    if m > 1:
         eq = words[0][1:] == words[0][:-1]
         for w in words[1:]:
             eq &= w[1:] == w[:-1]
@@ -256,12 +314,12 @@ def post_sort(words, s_idx: torch.Tensor, n: int, spw: int, bits: int,
     if not want_lcp:
         return tie, stats, None
     nw = len(words)
-    lcp = torch.full((n,), nw * spw, dtype=torch.int32, device=dev)
+    lcp = torch.full((m,), nw * spw, dtype=torch.int32, device=dev)
     # Word by word from the last: the first differing word wins.
     for w in reversed(range(nw)):
-        prev = torch.cat([torch.full((1,), -1, dtype=torch.int32,
-                                     device=dev), words[w][:-1]])
-        x = prev ^ words[w]
+        head = (torch.full((1,), -1, dtype=torch.int32, device=dev)
+                if prev is None else prev[w])
+        x = torch.cat([head, words[w][:-1]]) ^ words[w]
         off = (w + 1) * spw - 1 - torch.div(_high_bit(x), bits,
                                             rounding_mode="floor")
         lcp = torch.where(x != 0, off.to(torch.int32), lcp)
@@ -633,4 +691,486 @@ def build_suffix_array_direct(text, *, device, info: dict | None = None,
                               "refine_rounds", "refine_pieces",
                               "refine_host_members", "refine_phase_s")})
         info["n_words"] = state["nw"]
+    return out
+
+
+# --- the MSD bucket builder -------------------------------------------------
+
+# Rows one bucket sort may hold (``max_bucket_elems``). On an H100 80GB
+# HBM3 a bucket's sort and post-sort pass held about 44 B a row beside
+# the slabs (MSD peak 18.69 GiB at 2^30 with 2^24-row buckets, 23.51 GiB
+# with 2^27; PERF.md), so at 2^28 rows a bucket adds about 11 GiB to the
+# 36.70 GiB of a 2^31 - 1 build: memory allows the cap, which is also the
+# direct route's whole-text sort. A bucket past it holds over a quarter
+# of a 2^30 text: too degenerate a prefix distribution for this path,
+# and the router falls back.
+MAX_PASS_ELEMS = 1 << 28
+# Positions per chunk of the count pass and the scatter
+# (``SA_CHUNK_ELEMS``) and target rows per bucket (``SA_TARGET_BUCKET``).
+# The JAX package's 7 * 2^20 and 8,060,000 were set by TPU v5e sort-
+# network classes. On an H100 (PERF.md, 2^30 random alnum) chunks of 2^24
+# to 2^27 moved count + scatter (79-88 ms) less than the run-to-run
+# spread, and buckets of 2^25 (686-694 ms a build) beat 2^23 and 2^24
+# (740-807 ms) and matched 2^26-2^27 with less memory.
+CHUNK_ELEMS = 1 << 26
+TARGET_BUCKET = 1 << 25
+
+
+@dataclass
+class BigPlan:
+    """Host-side plan: geometry, alphabet packing, bucket edges."""
+
+    n: int
+    m: int                      # chunk width (position space)
+    n_chunks: int
+    bits: int                   # bits per dense symbol code
+    spw: int                    # symbols packed per key word (30 // bits)
+    remap: np.ndarray           # uint8 -> dense code (1..sigma), int32[256]
+    e0: np.ndarray              # int32[E] edge k0 words
+    e1: np.ndarray              # int32[E] edge k1 words (all 0: k0-only)
+    minpad: bool = False        # 0-based codes, past-end = min symbol
+    counts: np.ndarray | None = None    # (C, NB) run lengths
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.e0) + 1
+
+
+def _host_pack_words(arr, remap, pos, spw: int, bits: int, word: int,
+                     minpad: bool = False):
+    """k{word} for sampled positions (host mirror of the device packing)."""
+    n = len(arr)
+    shift = 1 if minpad else 0
+    out = np.zeros(len(pos), np.int64)
+    for s in range(spw):
+        p = pos + word * spw + s
+        code = np.where(p < n, remap[arr[np.minimum(p, n - 1)]] - shift, 0)
+        out = (out << bits) | code
+    return out
+
+
+def _pack_sampled(text: torch.Tensor, remap, pos, spw: int, bits: int,
+                  word: int, minpad: bool = False) -> np.ndarray:
+    """``_host_pack_words`` on a uint8 tensor: the positions' words are
+    gathered and folded where the text lies, and only they come back."""
+    n, dev = text.shape[0], text.device
+    table = key_table(remap, minpad, dev)
+    p = (torch.as_tensor(pos, dtype=torch.int64).to(dev)[:, None]
+         + torch.arange(word * spw, (word + 1) * spw, device=dev))
+    codes = torch.where(p < n, table[text[p.clamp(max=n - 1)].long()], 0)
+    out = torch.zeros(p.shape[0], dtype=torch.int64, device=dev)
+    for s in range(spw):
+        out = (out << bits) | codes[:, s]
+    return out.cpu().numpy()
+
+
+def sample_edges(arr: np.ndarray, remap, spw: int, bits: int,
+                 target_bucket: int, sample: int = 1 << 21,
+                 seed: int = 0x5A, k0_only: bool | None = None,
+                 with_fracs: bool = False, minpad: bool = False,
+                 text_dev: torch.Tensor | None = None):
+    """Quantile bucket edges over sampled keys, the JAX package's
+    function: (e0, e1) int32 edge words, and with ``with_fracs`` the
+    sampled fill fraction of each bucket.
+
+    Prefers k0-only edges (e1 all zeros: the bucket id is a function of
+    k0 alone, and the count pass packs one word). Falls back to (k0, k1)
+    pair edges when the sampled k0 quantiles predict a bucket over
+    ``min(0.7 * MAX_PASS_ELEMS, 4 * target_bucket)`` (heavy first-word
+    duplication). ``k0_only`` forces the mode; True raises ValueError
+    where k0 alone is too skewed.
+
+    ``text_dev``: the same bytes as a uint8 tensor; the sampled words are
+    then packed where it lies (the host gathers of 2^21 random positions
+    took about 0.35 s at 2^26, most of an MSD build there). The positions
+    and the quantiles stay on the host, so the edges are the same."""
+    n = len(arr)
+    n_buckets = max(2, math.ceil(n / target_bucket))
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, n, min(sample, 4 * n))
+
+    def pack(word):
+        if text_dev is None:
+            return _host_pack_words(arr, remap, pos, spw, bits, word, minpad)
+        return _pack_sampled(text_dev, remap, pos, spw, bits, word, minpad)
+
+    c0 = pack(0)
+    if k0_only is not False:
+        c0s = np.sort(c0)
+        q = (np.arange(1, n_buckets) * len(c0s)) // n_buckets
+        e0 = np.unique(c0s[q])
+        cuts = np.searchsorted(c0s, e0, side="left")
+        sizes = np.diff(np.r_[0, cuts, len(c0s)])
+        worst = sizes.max() / max(len(c0s), 1) * n
+        if len(e0) and worst <= min(0.7 * MAX_PASS_ELEMS,
+                                    4 * target_bucket):
+            out = (e0.astype(np.int32), np.zeros(len(e0), np.int32))
+            if with_fracs:
+                return out + (sizes / max(len(c0s), 1),)
+            return out
+        if k0_only:
+            raise ValueError("k0-only edges requested but the sampled "
+                             "k0 distribution is too skewed")
+    c1 = pack(1)
+    code = (c0.astype(np.int64) << 31) | c1
+    code.sort()
+    q = (np.arange(1, n_buckets) * len(code)) // n_buckets
+    edges = np.unique(code[q])
+    out = ((edges >> 31).astype(np.int32),
+           (edges & ((1 << 31) - 1)).astype(np.int32))
+    if with_fracs:
+        cuts = np.searchsorted(code, edges, side="left")
+        return out + (np.diff(np.r_[0, cuts, len(code)]) / max(len(code),
+                                                               1),)
+    return out
+
+
+def chunk_geometry(n: int, chunk_elems: int | None = None
+                   ) -> tuple[int, int, int]:
+    """(m, n_chunks, text length) of an n-byte MSD build: chunks of
+    ``chunk_elems`` positions (``SA_CHUNK_ELEMS``, default
+    ``CHUNK_ELEMS``), the last one shorter. The JAX package's third value
+    is its zero-padded text length; the port reads past the end as 0
+    in the pack kernel, so it is n."""
+    if chunk_elems is None:
+        chunk_elems = int(os.environ.get("SA_CHUNK_ELEMS", CHUNK_ELEMS))
+    m = max(1, min(int(chunk_elems), n))
+    return m, -(-n // m), n
+
+
+def prepare_big(text, *, device, target_bucket: int | None = None,
+                chunk_elems: int | None = None, sample: int = 1 << 21,
+                text_dev=None, remap: np.ndarray | None = None,
+                est_repeat: int | None = None) -> dict:
+    """Stage the text on ``device`` and build the host plan (untimed
+    setup).
+
+    ``text``: the host bytes (edge sampling and the residue read them).
+    ``text_dev``: optional uint8 copy of the same bytes on ``device``
+    (see ``device_text``). ``remap``/``est_repeat``: planning products
+    the router already computed for the same bytes. ``target_bucket``
+    (``SA_TARGET_BUCKET``, default ``TARGET_BUCKET``) is raised to
+    ceil(n / ``MAX_RADIX``) where needed, so the bucket id is one digit
+    of the scatter's onesweep pass."""
+    arr = as_byte_array(text)
+    n = int(arr.shape[0])
+    if n < 8:
+        raise ValueError("bigsort needs n >= 8; use build_suffix_array")
+    if target_bucket is None:
+        target_bucket = int(os.environ.get("SA_TARGET_BUCKET",
+                                           TARGET_BUCKET))
+    target_bucket = max(int(target_bucket), -(-n // MAX_RADIX))
+    t = device_text(arr, device, text_dev)
+    m, n_chunks, _ = chunk_geometry(n, chunk_elems)
+    if remap is None:
+        remap, _, _ = alphabet_remap_dev(t)
+    bits, spw, minpad = packing_mode(remap)
+    e0, e1 = sample_edges(arr, remap, spw, bits, target_bucket,
+                          sample=sample, minpad=minpad, text_dev=t)
+    if est_repeat is None:
+        est_repeat = estimate_repeat_len(arr)
+    return {
+        "plan": BigPlan(n=n, m=m, n_chunks=n_chunks, bits=bits, spw=spw,
+                        remap=remap, e0=e0, e1=e1, minpad=minpad,
+                        meta={"est_repeat": est_repeat,
+                              "target_bucket": target_bucket}),
+        "text_dev": t,
+        "table": key_table(remap, minpad, t.device),
+        "host_text": arr,
+    }
+
+
+def _chunk_keys(state: dict, c: int, n_words: int) -> list[torch.Tensor]:
+    """Key words k0 (and k1) of chunk c's positions, by K1 on the chunk's
+    text plus the 2*spw bytes after it (0 past n)."""
+    plan, t = state["plan"], state["text_dev"]
+    s = c * plan.m
+    e = min(s + plan.m, plan.n)
+    seg = t[s:min(e + 2 * plan.spw, plan.n)]
+    return [pack_ranks(seg, state["table"], plan.bits, plan.spw,
+                       seg.shape[0], offset=w * plan.spw)[:e - s]
+            for w in range(n_words)]
+
+
+def _bucket_ids(keys, edges: torch.Tensor) -> torch.Tensor:
+    """int32 bucket id of each position: the number of edges at or below
+    its key, k0 for k0-only edges (int32 ``edges``), else the 62-bit
+    ``k0 << 31 | k1`` (int64 ``edges``)."""
+    if edges.dtype == torch.int32:
+        key = keys[0]
+    else:
+        key = (keys[0].long() << 31) | keys[1].long()
+    return torch.searchsorted(edges, key, right=True, out_int32=True)
+
+
+def _plan_edges(plan: BigPlan, device) -> torch.Tensor:
+    if not plan.e1.any():
+        return torch.as_tensor(plan.e0.astype(np.int32)).to(device)
+    code = (plan.e0.astype(np.int64) << 31) | plan.e1.astype(np.int64)
+    return torch.as_tensor(code).to(device)
+
+
+def _count_pass(state: dict, edges: torch.Tensor) -> np.ndarray:
+    """(C, NB) int64: positions of chunk c in bucket b (the JAX package's
+    ``_count_chunks``, differenced); one host read."""
+    plan = state["plan"]
+    n_words = 1 if edges.dtype == torch.int32 else 2
+    rows = []
+    for c in range(plan.n_chunks):
+        bid = _bucket_ids(_chunk_keys(state, c, n_words), edges)
+        rows.append(torch.bincount(bid, minlength=plan.n_buckets))
+    return torch.stack(rows).cpu().numpy().astype(np.int64)
+
+
+def _scatter(state: dict, edges: torch.Tensor, counts: np.ndarray,
+             dest: np.ndarray) -> list[torch.Tensor]:
+    """Slabs (bid, k0, k1, idx), int32[n] each: one onesweep pass per
+    chunk by the bucket id, chunk c's bucket-b run landing at
+    ``dest[c, b]``."""
+    plan, dev = state["plan"], state["text_dev"].device
+    n, nb = plan.n, plan.n_buckets
+    rbits = max(1, (nb - 1).bit_length())
+    slabs = [torch.empty(n, dtype=torch.int32, device=dev)
+             for _ in range(4)]
+    starts = np.zeros((plan.n_chunks, 1 << rbits), np.int32)
+    starts[:, :nb] = dest
+    starts = torch.as_tensor(starts).to(dev)
+    lookback = LookBack(plan.m, plan.n_chunks, dev)
+    for c in range(plan.n_chunks):
+        keys = _chunk_keys(state, c, 2)
+        bid = _bucket_ids(keys, edges)
+        s = c * plan.m
+        idx = torch.arange(s, s + bid.shape[0], dtype=torch.int32,
+                           device=dev)
+        onesweep_pass([bid, *keys, idx], 0, 0, rbits, starts[c], lookback,
+                      out=slabs, digit_counts=counts[c])
+    return slabs
+
+
+class _DeviceSpans:
+    """Summed device time of named spans between CUDA events (none on
+    other devices); read once the work has finished."""
+
+    def __init__(self, dev: torch.device):
+        self.on = dev.type == "cuda"
+        self.marks: list[tuple[str, torch.cuda.Event]] = []
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        if self.on:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+
+    def totals_ms(self) -> dict:
+        out: dict = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return {k: round(v, 3) for k, v in out.items()}
+
+
+def _bucket_pass(state: dict, slabs, base: np.ndarray, fills: np.ndarray,
+                 live: list[int], chain_mode: bool, want_lcp: bool):
+    """Sort every live bucket in place and finish it with ``post_sort``.
+
+    Returns (tie bool[n], stats int64[L, 3] per live bucket, device ms
+    of the sorts and post-sort passes). The LCP of bucket b goes into
+    the bucket-id slab at b's region."""
+    plan = state["plan"]
+    bid_s, k0_s, k1_s, idx_s = slabs
+    tie = torch.zeros(plan.n, dtype=torch.bool, device=idx_s.device)
+    spans = _DeviceSpans(idx_s.device)
+    stats, prev = [], None
+    for b in live:
+        a, z = int(base[b]), int(base[b] + fills[b])
+        k0, k1, idx = k0_s[a:z], k1_s[a:z], idx_s[a:z]
+        if chain_mode:                  # stable sort of reversed input
+            for col in (k0, k1, idx):
+                col.copy_(col.flip(0))
+        radix_sort_words([k0, k1], idx, plan.bits * plan.spw)
+        spans.mark("bucket_sort")
+        t_b, s_b, lcp_b = post_sort([k0, k1], idx, plan.n, plan.spw,
+                                    plan.bits, chain_mode, want_lcp, prev)
+        tie[a:z] = t_b
+        if want_lcp:
+            bid_s[a:z] = lcp_b
+        stats.append(s_b)
+        prev = (k0[-1:], k1[-1:])
+        spans.mark("post_sort")
+    stats = torch.stack(stats).cpu().numpy()        # the pass's host read
+    return tie, stats, spans.totals_ms()
+
+
+def execute_big(state: dict, *, max_bucket_elems: int | None = None,
+                force_chain_mode: bool | None = None,
+                want_lcp: bool = False):
+    """Count, scatter and bucket passes; returns the SA (and the LCP with
+    ``want_lcp``), int32[n] on the state's device.
+
+    Chain mode (chosen from the repeat estimate, or forced) checks every
+    tied bucket's delta and its global period; a misprediction reruns
+    ascending (``meta["rerun"]``: ``chain_to_ascending``), and an
+    ascending run that ties over a quarter of a chain-plausible text
+    reruns in chain mode (``ascending_to_chain``). Ascending ties go to
+    the host residue while every bucket's members fit ``RESIDUE_SLOTS``
+    and all flags fit ``SA_HOST_RESIDUE_MAX``; past that the device
+    refinement (``core/refine.py``) orders them. Raises
+    NotImplementedError on bucket skew (a bucket over
+    ``max_bucket_elems``, default ``MAX_PASS_ELEMS``), where forced chain
+    mode does not hold, and ``RefineOverflow`` past a refinement cap.
+
+    ``meta`` (``state["plan"].meta``) receives ``n_buckets_run``,
+    ``chain_mode``, ``periods``, ``n_patched``, ``phase_host_s`` (host
+    clock between synced phase ends: count, scatter, bucket_sorts,
+    residue_extract, finish) and, on CUDA, ``phase_device_ms`` (the
+    bucket sorts and post-sort passes, summed)."""
+    plan: BigPlan = state["plan"]
+    meta = plan.meta
+    n, nb = plan.n, plan.n_buckets
+    t = state["text_dev"]
+    dev = t.device
+    stamps = [("start", time.perf_counter())]
+    chain_mode = force_chain_mode
+    if chain_mode is None:
+        chain_mode = chain_plausible(meta.get("est_repeat", 0), n)
+
+    edges = _plan_edges(plan, dev)
+    counts = _count_pass(state, edges)
+    plan.counts = counts
+    fills = counts.sum(axis=0)
+    if int(fills.sum()) != n:
+        raise RuntimeError(f"bucket counts sum to {int(fills.sum())}, "
+                           f"not n={n}")
+    stamps.append(("count", time.perf_counter()))
+    pass_cap = max_bucket_elems or MAX_PASS_ELEMS
+    if int(fills.max()) > pass_cap:
+        raise NotImplementedError(
+            f"bucket skew: one bucket holds {int(fills.max())} of n={n} "
+            f"elements (> {pass_cap}); the text's prefix distribution is "
+            "too degenerate for the MSD path")
+    # Exact counts, so no gaps: bucket b's region is its final SA range,
+    # and chunk c's run of b follows the runs of the chunks before it.
+    base = np.concatenate([[0], np.cumsum(fills)[:-1]]).astype(np.int64)
+    dest = base[None, :] + np.concatenate(
+        [np.zeros((1, nb), np.int64), np.cumsum(counts, axis=0)[:-1]])
+    slabs = _scatter(state, edges, counts, dest)
+    _sync(dev)
+    stamps.append(("scatter", time.perf_counter()))
+
+    live = [b for b in range(nb) if fills[b]]
+    tie, stats, dev_ms = _bucket_pass(state, slabs, base, fills, live,
+                                      chain_mode, want_lcp)
+    sa = slabs[3]
+    lcp = slabs[0] if want_lcp else None
+    del slabs                           # the key slabs are dead
+    stamps.append(("bucket_sorts", time.perf_counter()))
+    tie_counts = stats[:, 0]
+
+    def rerun(kind: str, force: bool):
+        meta.setdefault("rerun", []).append(kind)
+        return execute_big(state, max_bucket_elems=max_bucket_elems,
+                           force_chain_mode=force, want_lcp=want_lcp)
+
+    verified: set[int] = set()
+    if chain_mode:
+        for b, (ties, d, dok) in zip(live, stats.tolist()):
+            if not ties:
+                continue
+            if not dok:
+                if force_chain_mode is None:
+                    sa = lcp = tie = None       # free before re-running
+                    return rerun("chain_to_ascending", False)
+                raise NotImplementedError(
+                    f"bucket {b}: residual ties are not uniform arithmetic "
+                    "chains")
+            if d and d not in verified:
+                mm = _period_mismatches(t, d, n)
+                if mm:
+                    if force_chain_mode is None:
+                        sa = lcp = tie = None
+                        return rerun("chain_to_ascending", False)
+                    raise NotImplementedError(
+                        f"bucket {b}: chain delta {d} is not a global "
+                        f"period ({mm} mismatches)")
+                verified.add(d)
+    elif (int(tie_counts.sum()) > n // 4
+          and chain_plausible(meta.get("est_repeat", 0), n)
+          and "chain_to_ascending" not in meta.get("rerun", [])):
+        sa = lcp = tie = None
+        return rerun("ascending_to_chain", True)
+
+    # The host residue's bound is per bucket (RESIDUE_SLOTS members each;
+    # members <= 2 * flags + groups, so the flags predict an overflow
+    # before any extraction); the global cap bounds the host lexsort.
+    patches = []
+    refine = False
+    host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
+    if not chain_mode and tie_counts.sum():
+        refine = (int(tie_counts.max()) * 2 > RESIDUE_SLOTS
+                  or int(tie_counts.sum()) > host_cap)
+        if not refine:
+            slots, idxs = _extract_ties(tie, sa)
+            bounds = torch.as_tensor(
+                np.r_[base[live], n].astype(np.int64)).to(dev)
+            cuts = torch.searchsorted(slots, bounds).tolist()
+            refine = max(np.diff(cuts)) > RESIDUE_SLOTS
+            if not refine:
+                slots, idxs = slots.cpu().numpy(), idxs.cpu().numpy()
+                patches = [(slots[a:z], idxs[a:z])
+                           for a, z in zip(cuts, cuts[1:]) if z > a]
+    stamps.append(("residue_extract", time.perf_counter()))
+
+    n_patched = 0
+    if refine:
+        from hpc_suffix_array_tpu_torch.core.refine import refine_ties
+
+        sa, lcp = refine_ties(
+            sa, tie, lcp, t, remap=plan.remap, spw_main=plan.spw, nw=2,
+            minpad=plan.minpad, host_text=state["host_text"],
+            want_lcp=want_lcp, meta=meta)
+        n_patched = meta["refine_host_members"]
+    del tie
+    if patches:
+        sa, lcp, n_patched = _apply_residue(
+            sa, lcp, state["host_text"], patches, n, want_lcp)
+    if want_lcp and plan.minpad:
+        # After the residue and refinement patches (see _clamp_lcp).
+        lcp = _clamp_lcp(sa, lcp, n)
+    _sync(dev)
+    stamps.append(("finish", time.perf_counter()))
+
+    meta.update(n_buckets_run=len(live), chain_mode=chain_mode,
+                periods=sorted(verified), n_patched=n_patched)
+    meta["phase_host_s"] = {
+        name: round(t1 - t0, 4)
+        for (_, t0), (name, t1) in zip(stamps, stamps[1:])}
+    if dev_ms:
+        meta["phase_device_ms"] = dev_ms
+    return (sa, lcp) if want_lcp else sa
+
+
+def build_suffix_array_big(text, *, device, info: dict | None = None,
+                           want_lcp: bool = False,
+                           max_bucket_elems: int | None = None, **kw):
+    """One-call MSD build (``prepare_big`` + ``execute_big``); ``kw`` go
+    to ``prepare_big``.
+
+    ``info``: optional dict that receives the plan's ``rerun``,
+    ``chain_mode``, ``n_patched``, ``periods`` and, where refinement
+    ran, ``refine_members``, ``refine_rounds``, ``refine_pieces``,
+    ``refine_host_members`` (the JAX package's keys), plus
+    ``refine_phase_s``, ``n_buckets_run``, ``phase_host_s`` and
+    ``phase_device_ms``."""
+    state = prepare_big(text, device=device, **kw)
+    out = execute_big(state, max_bucket_elems=max_bucket_elems,
+                      want_lcp=want_lcp)
+    if info is not None:
+        info.update({k: v for k, v in state["plan"].meta.items()
+                     if k in ("rerun", "chain_mode", "n_patched",
+                              "periods", "refine_members",
+                              "refine_rounds", "refine_pieces",
+                              "refine_host_members", "refine_phase_s",
+                              "n_buckets_run", "phase_host_s",
+                              "phase_device_ms")})
     return out

@@ -16,7 +16,8 @@ The loop is host-driven (one ``resolved.all()`` sync per round), as in
 the JAX package.
 
 The carried-keys routes (``_sa_lcp_big``, ``build_sa_lcp``) take the LCP
-from the direct builder's sorted keys (``core/bigsort.py``, ``want_lcp``):
+from the direct or MSD builder's sorted keys (``core/bigsort.py``,
+``want_lcp``):
 ``build_lcp_array`` uses them above ``SA_LCP_BIG_MIN`` and for texts of
 deep repeats between ``SA_LCP_CHAIN_MIN`` and ``SA_LCP_WINDOW_MIN``, and
 PLCP otherwise. The JAX package's window and sorted-fetch routes are not
@@ -32,8 +33,8 @@ import torch
 
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap_dev, as_byte_array, build_suffix_array,
-    build_suffix_array_doubling, device_text, doubling_reach,
-    sais_host_fallback)
+    build_suffix_array_doubling, carried_keys_build, device_text,
+    doubling_reach, sais_host_fallback)
 from hpc_suffix_array_tpu_torch.device import resolve_device
 
 # Bytes compared per unresolved position per round.
@@ -163,33 +164,21 @@ def lcp_from_plcp(plcp: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
 
 def _sa_lcp_big(text, n: int, *, device, text_dev=None,
                 info: dict | None = None):
-    """(sa, lcp) from the direct carried-keys build, or None when it is
-    infeasible or declines (the caller then takes doubling and PLCP, or
-    host SA-IS and Kasai past the doubling reach).
+    """(sa, lcp) from the carried-keys builds (direct when preferred,
+    else MSD; ``carried_keys_build``), or None when both decline (the
+    caller then takes doubling and PLCP, or host SA-IS and Kasai past
+    the doubling reach).
 
     ``text``: the host bytes (planning); ``text_dev``: their device copy,
     whose alphabet is counted on the device. ``info`` receives the
-    build's keys and ``path`` = "direct", or ``declined``."""
-    from hpc_suffix_array_tpu_torch.core import bigsort
+    build's keys and ``path`` ("direct" or "msd"), or ``declined``."""
+    from hpc_suffix_array_tpu_torch.core.bigsort import estimate_repeat_len
 
     host = as_byte_array(text)
     t = device_text(host, device, text_dev)
     remap, _, _ = alphabet_remap_dev(t)
-    est = bigsort.estimate_repeat_len(host)
-    if not bigsort.direct_feasible(host, n, est_repeat=est,
-                                   sigma=int(remap.max())):
-        return None
-    try:
-        out = bigsort.build_suffix_array_direct(
-            host, device=t.device, want_lcp=True, text_dev=t, remap=remap,
-            est_repeat=est, info=info)
-    except NotImplementedError as e:
-        if info is not None:
-            info["declined"] = str(e)
-        return None
-    if info is not None:
-        info["path"] = "direct"
-    return out
+    return carried_keys_build(host, n, t, remap, estimate_repeat_len(host),
+                              info, want_lcp=True)
 
 
 def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
@@ -250,13 +239,13 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
     ``text``.
 
     Above ``SA_LCP_BIG_MIN``, and for deep-repeat texts from
-    ``SA_LCP_CHAIN_MIN`` to ``SA_LCP_WINDOW_MIN``, the LCP comes from the
-    direct carried-keys build, which derives the order from the text
-    itself: the supplied ``sa`` is then checked against the derived one,
-    and a mismatch raises ValueError. Otherwise, and when that build
+    ``SA_LCP_CHAIN_MIN`` to ``SA_LCP_WINDOW_MIN``, the LCP comes from a
+    carried-keys build (direct or MSD), which derives the order from the
+    text itself: the supplied ``sa`` is then checked against the derived
+    one, and a mismatch raises ValueError. Otherwise, and when that build
     declines, PLCP. ``text_dev`` as in ``build_suffix_array``.
-    ``info``: optional dict that receives ``lcp_path`` ("direct" or
-    "plcp") and, for PLCP, ``plcp_rounds``."""
+    ``info``: optional dict that receives ``lcp_path`` ("direct", "msd"
+    or "plcp") and, for PLCP, ``plcp_rounds``."""
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]
@@ -265,14 +254,15 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
         raise ValueError(f"sa length {sa.shape[0]} != text length {n}")
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
-    derived, what = None, ""
+    derived, what, route = None, "", {}
     if n > lcp_big_min():
-        derived = _sa_lcp_big(text, n, device=dev, text_dev=t)
+        derived = _sa_lcp_big(text, n, device=dev, text_dev=t, info=route)
         what = "large-text"
     elif lcp_chain_min() <= n <= lcp_window_min():
         host = as_byte_array(text)
         if _deep_repeat(host):
-            derived = _sa_lcp_big(host, n, device=dev, text_dev=t)
+            derived = _sa_lcp_big(host, n, device=dev, text_dev=t,
+                                  info=route)
             what = "repetitive-text"
     if derived is not None:
         derived_sa, lcp = derived
@@ -283,7 +273,7 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
                 "build) and cross-checks `sa`; pass the true SA or call "
                 "build_sa_lcp(text)")
         if info is not None:
-            info["lcp_path"] = "direct"
+            info["lcp_path"] = route["path"]
         return lcp
     if info is not None:
         info["lcp_path"] = "plcp"

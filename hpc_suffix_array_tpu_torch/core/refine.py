@@ -47,7 +47,8 @@ import time
 import numpy as np
 import torch
 
-from hpc_suffix_array_tpu_torch.core.bigsort import _apply_residue, _high_bit
+from hpc_suffix_array_tpu_torch.core.bigsort import (
+    _apply_residue, _high_bit, _sync)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
 
@@ -97,18 +98,30 @@ def pair_table(text: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
 
 
 def piece_bounds(head: torch.Tensor, target: int) -> list[int]:
-    """Row bounds [0, ..., M] of pieces of about ``target`` members
-    each, every piece starting at a group head (``head[0]`` is one).
-    Piece k ends at the first head at or after row k*target; one host
-    read."""
+    """Row bounds [0, ..., M] of pieces of at most ``target`` members
+    each where the groups allow, every piece starting at a group head
+    (``head[0]`` is one). Greedy: a piece from row x ends at the last
+    head at or before x + target, or, where one group is longer than
+    ``target``, at the first head after x. (Ending pieces at the first
+    head at or after each multiple of ``target`` let them outgrow it by
+    a group's tail, past ``SA_REFINE_GROUP_MAX`` = the target on 2^30
+    words.) One host read per piece."""
     m = head.shape[0]
+    bounds = [0]
     if m <= target:
-        return [0, m]
+        return bounds + [m]
     heads = torch.nonzero(head).view(-1)
     ends = torch.cat([heads, heads.new_full((1,), m)])
-    want = torch.arange(target, m, target, device=head.device)
-    cuts = ends[torch.searchsorted(heads, want)]
-    return sorted(set([0, m] + cuts.tolist()))
+    while bounds[-1] + target < m:
+        x = bounds[-1]
+        at = torch.searchsorted(heads, torch.tensor([x + target, x],
+                                                    device=heads.device),
+                                right=True)
+        last, after = ends[at[0] - 1], ends[at[1]]
+        bounds.append(int(torch.where(last > x, last, after)))
+    if bounds[-1] != m:
+        bounds.append(m)
+    return bounds
 
 
 def segment_ids(head: torch.Tensor) -> torch.Tensor:
@@ -180,11 +193,6 @@ def _commit(sa, lcp, slot, idx, patch) -> None:
     sa.index_copy_(0, slot, idx)
     if lcp is not None:
         lcp.index_copy_(0, slot, torch.where(patch >= 0, patch, lcp[slot]))
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def refine_ties(sa: torch.Tensor, tie: torch.Tensor,

@@ -16,12 +16,11 @@ Differences from the JAX version:
 
 ``build_suffix_array`` routes as the JAX package's does above
 ``SA_BIG_THRESHOLD`` (4 MiB): to the direct carried-keys builder
-(``core/bigsort.py``, with device tie refinement) when
-``direct_feasible`` holds, and otherwise or when the direct builder
-declines to the doubling builder (``build_suffix_array_doubling``) up to
-``DOUBLING_REACH``, and to host SA-IS (``sais_host_fallback``) above it.
-The JAX package's MSD builder and its direct-vs-MSD crossover
-(``prefer_direct``) are not ported yet.
+(``core/bigsort.py``, with device tie refinement) when ``prefer_direct``
+holds, otherwise or when it declines to the MSD bucket builder (same
+module), and when that declines to the doubling builder
+(``build_suffix_array_doubling``) up to ``DOUBLING_REACH`` and to host
+SA-IS (``sais_host_fallback``) above it.
 """
 
 from __future__ import annotations
@@ -208,6 +207,34 @@ def sais_host_fallback(text, *, device, info: dict | None = None
     return sa.to(resolve_device(device))
 
 
+def carried_keys_build(arr: np.ndarray, n: int, t: torch.Tensor,
+                       remap: np.ndarray, est: int, info: dict | None,
+                       want_lcp: bool):
+    """The carried-keys routes in the JAX package's order: the direct
+    builder when ``prefer_direct`` holds, else (or when it declines) the
+    MSD builder. Returns the SA (``(sa, lcp)`` with ``want_lcp``), or
+    None when both decline; ``info`` receives the build's keys and
+    ``path`` ("direct" or "msd"), or ``declined``."""
+    from hpc_suffix_array_tpu_torch.core import bigsort
+
+    kw = dict(device=t.device, info=info, want_lcp=want_lcp, text_dev=t,
+              remap=remap, est_repeat=est)
+    routes = [("msd", bigsort.build_suffix_array_big)]
+    if bigsort.prefer_direct(arr, n, est_repeat=est, sigma=int(remap.max())):
+        routes.insert(0, ("direct", bigsort.build_suffix_array_direct))
+    for path, build in routes:
+        try:
+            out = build(arr, **kw)
+        except NotImplementedError as e:
+            if info is not None:
+                info["declined"] = str(e)
+            continue
+        if info is not None:
+            info["path"] = path
+        return out
+    return None
+
+
 def build_suffix_array(text, *, device, info: dict | None = None,
                        text_dev: torch.Tensor | None = None
                        ) -> torch.Tensor:
@@ -219,11 +246,11 @@ def build_suffix_array(text, *, device, info: dict | None = None,
     on the host bytes, so pass ``text`` as a host array and the device
     copy here: a device tensor as ``text`` costs a copy to the host.
 
-    ``info``: optional dict that receives ``path`` ("direct",
-    "doubling" or "sais_host"), the direct build's keys (``rerun``,
-    ``chain_mode``, ``n_patched``, ``periods``, ``n_words``, the
-    ``refine_*`` keys), ``declined`` (why the direct builder fell back)
-    or ``rounds``."""
+    ``info``: optional dict that receives ``path`` ("direct", "msd",
+    "doubling" or "sais_host"), the carried-keys build's keys
+    (``rerun``, ``chain_mode``, ``n_patched``, ``periods``, ``n_words``
+    or ``n_buckets_run``, the ``refine_*`` keys), ``declined`` (why a
+    carried-keys builder fell back) or ``rounds``."""
     t = device_text(text, device, text_dev)
     n = t.shape[0]
     if n > big_threshold():
@@ -233,18 +260,10 @@ def build_suffix_array(text, *, device, info: dict | None = None,
         # One alphabet and repeat scan feeds the gate and the builder.
         remap, _, _ = alphabet_remap_dev(t)
         est = bigsort.estimate_repeat_len(arr)
-        if bigsort.direct_feasible(arr, n, est_repeat=est,
-                                   sigma=int(remap.max())):
-            try:
-                sa = bigsort.build_suffix_array_direct(
-                    arr, device=t.device, info=info, text_dev=t,
-                    remap=remap, est_repeat=est)
-                if info is not None:
-                    info["path"] = "direct"
-                return sa
-            except NotImplementedError as e:
-                if info is not None:
-                    info["declined"] = str(e)
+        out = carried_keys_build(arr, n, t, remap, est, info,
+                                 want_lcp=False)
+        if out is not None:
+            return out
     if n > doubling_reach():
         return sais_host_fallback(text, device=t.device, info=info)
     return build_suffix_array_doubling(t, device=t.device, info=info)

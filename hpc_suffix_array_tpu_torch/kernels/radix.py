@@ -321,17 +321,34 @@ def plan_passes(hist: torch.Tensor):
 
 
 def onesweep_pass_reference(cols, key_col: int, shift: int, rbits: int,
-                            out=None):
+                            out=None, digit_starts=None):
     """Plain onesweep pass: a stable argsort of the digit (read as
-    uint32) and a gather of every column, into ``out`` when given."""
+    uint32) and a gather of every column, into ``out`` when given.
+
+    With ``digit_starts`` the element of rank r among those of digit d
+    goes to ``out[digit_starts[d] + r]``, and ``out`` may be longer than
+    the input (``onesweep_pass``'s relaxed contract; checked here against
+    the pass's own digit counts)."""
     _check(cols, key_col, shift, rbits)
-    order = torch.sort(_digits(cols[key_col], shift, rbits),
-                       stable=True).indices
+    digit = _digits(cols[key_col], shift, rbits)
+    order = torch.sort(digit, stable=True).indices
     moved = [c[order] for c in cols]
-    if out is None:
-        return moved
+    if digit_starts is None:
+        if out is None:
+            return moved
+        for o, m in zip(out, moved):
+            o.copy_(m)
+        return out
+    n = cols[0].shape[0]
+    out = [torch.empty_like(c) for c in cols] if out is None else out
+    hist = torch.bincount(digit, minlength=1 << rbits)
+    _check_pass_buffers(cols, out, digit_starts, rbits, hist.tolist())
+    first = torch.cumsum(hist, 0) - hist
+    sd = digit[order]
+    to = (digit_starts.long()[sd] - first[sd]
+          + torch.arange(n, device=digit.device))
     for o, m in zip(out, moved):
-        o.copy_(m)
+        o[to] = m
     return out
 
 
@@ -359,15 +376,22 @@ class LookBack:
         return self.status, self.counters[self.epoch - 1], self.epoch
 
 
-def _check_pass_buffers(cols, out, digit_starts, rbits: int) -> None:
+def _check_pass_buffers(cols, out, digit_starts, rbits: int,
+                        digit_counts=None) -> None:
+    """Output columns are int32, at least n long, on the inputs' device
+    and not the inputs. Outputs longer than n (a pass writing into a part
+    of larger columns) need ``digit_counts``, the pass's count of each
+    digit on the host: every digit's run ``[digit_starts[d], digit_starts
+    [d] + digit_counts[d])`` must lie inside the outputs (one read of
+    ``digit_starts`` to the host)."""
     n, dev = cols[0].shape[0], cols[0].device
     if len(out) != len(cols):
         raise ValueError(f"{len(out)} output columns for {len(cols)}")
     for o in out:
-        if (o.dtype != torch.int32 or tuple(o.shape) != (n,)
+        if (o.dtype != torch.int32 or o.dim() != 1 or o.shape[0] < n
                 or o.device != dev or not o.is_contiguous()):
-            raise TypeError(f"output columns must be contiguous int32[{n}] "
-                            f"on {dev}")
+            raise TypeError(f"output columns must be contiguous int32[>= "
+                            f"{n}] on {dev}")
         if any(o.data_ptr() == c.data_ptr() for c in cols):
             raise ValueError("output columns must not be input columns")
     if (digit_starts.dtype != torch.int32 or digit_starts.dim() != 1
@@ -376,22 +400,40 @@ def _check_pass_buffers(cols, out, digit_starts, rbits: int) -> None:
             or not digit_starts.is_contiguous()):
         raise TypeError(f"digit_starts must be contiguous int32[>= "
                         f"{1 << rbits}] on {dev}")
+    size = min(o.shape[0] for o in out)
+    if size == n and digit_counts is None:
+        return
+    if digit_counts is None:
+        raise ValueError(f"outputs of {size} elements for an input of {n} "
+                         "need digit_counts")
+    counts = [int(c) for c in digit_counts][:1 << rbits]
+    starts = digit_starts[:len(counts)].tolist()
+    if sum(counts) != n:
+        raise ValueError(f"digit_counts sum to {sum(counts)}, not n={n}")
+    for d, (s, c) in enumerate(zip(starts, counts)):
+        if c and not 0 <= s <= size - c:
+            raise ValueError(f"digit {d}: run [{s}, {s + c}) outside the "
+                             f"outputs of {size} elements")
 
 
 def onesweep_pass(cols, key_col: int, shift: int, rbits: int, digit_starts,
-                  lookback: LookBack, out=None):
+                  lookback: LookBack, out=None, digit_counts=None):
     """One stable LSD pass of ``cols`` by the ``rbits``-bit digit of
     ``cols[key_col]`` at ``shift``, written to ``out`` (new columns when
     None; never the inputs). ``digit_starts`` int32[>= 2^rbits] holds
     every digit's first global place (a row of ``plan_passes``' starts);
-    ``lookback`` is the sort's ``LookBack``. On CPU tensors both are
-    unused: the plain version needs neither."""
+    ``lookback`` is the sort's ``LookBack``. ``out`` may be longer than
+    the input when ``digit_counts`` (host) bounds every digit's run
+    inside it (see ``_check_pass_buffers``): the MSD scatter writes a
+    chunk's buckets into full-length slabs this way. On CPU tensors the
+    plain version places by ``digit_starts`` and needs no look-back."""
     _check(cols, key_col, shift, rbits)
     if _device_kind(cols[0], "onesweep_pass") == "cpu":
-        return onesweep_pass_reference(cols, key_col, shift, rbits, out)
+        return onesweep_pass_reference(cols, key_col, shift, rbits, out,
+                                       digit_starts)
     n, dev = cols[0].shape[0], cols[0].device
     out = [torch.empty_like(c) for c in cols] if out is None else out
-    _check_pass_buffers(cols, out, digit_starts, rbits)
+    _check_pass_buffers(cols, out, digit_starts, rbits, digit_counts)
     if n == 0:
         return out
     if lookback.n < n:

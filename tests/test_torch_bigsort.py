@@ -236,12 +236,17 @@ def test_residue_feasible_sigma_matches_jax():
 
 @pytest.mark.parametrize("name", ["alnum", "dna", "periodic", "deep_ties",
                                   "all_a", "binary"])
-def test_text_gates_match_jax(name):
+def test_text_gates_match_jax(monkeypatch, name):
+    """The gates agree with the JAX package's at the same thresholds. The
+    crossover is read from ``SA_DIRECT_CROSS`` in both packages; its
+    defaults differ (2^27 measured on a TPU v5e, the port's
+    ``DIRECT_CROSS`` on an H100), so the JAX default is set for both."""
     text = (np.frombuffer(b"ab", np.uint8)[_rng(30).integers(0, 2, 4096)]
             if name == "binary" else
             _deep_ties() if name == "deep_ties" else CORPORA[name]())
     n = len(text)
     assert tbs.estimate_repeat_len(text) == jbs.estimate_repeat_len(text)
+    monkeypatch.setenv("SA_DIRECT_CROSS", str(1 << 27))
     for claimed in (n, 1 << 26, 1 << 28, (1 << 28) + 1):
         for words in (2, 3):
             assert (tbs.residue_feasible(text, claimed, 8192.0, words=words)
@@ -250,6 +255,12 @@ def test_text_gates_match_jax(name):
         for fn in ("direct_feasible", "prefer_direct"):
             assert (getattr(tbs, fn)(text, claimed)
                     == getattr(jbs, fn)(text, claimed)), (fn, claimed)
+    monkeypatch.delenv("SA_DIRECT_CROSS")
+    for claimed in (n, 1 << 26, 1 << 28, (1 << 28) + 1):
+        assert (tbs.prefer_direct(text, claimed)
+                == (tbs.direct_feasible(text, claimed)
+                    and (claimed <= tbs.DIRECT_CROSS or tbs.chain_plausible(
+                        tbs.estimate_repeat_len(text), claimed))))
 
 
 def test_high_bit_exact():
@@ -283,12 +294,14 @@ def test_build_suffix_array_routes_direct(monkeypatch):
 
 
 def test_build_suffix_array_decline_falls_back_to_doubling(monkeypatch):
+    """Both carried-keys builders decline: doubling closes, as in JAX."""
     monkeypatch.setenv("SA_BIG_THRESHOLD", "10000")
 
     def declines(*a, **kw):
         raise NotImplementedError("synthetic degenerate-text refusal")
 
     monkeypatch.setattr(tbs, "build_suffix_array_direct", declines)
+    monkeypatch.setattr(tbs, "build_suffix_array_big", declines)
     text = _rng(41).integers(0, 256, 20_000).astype(np.uint8)
     info = {}
     sa = tsa.build_suffix_array(text, device="cpu", info=info)
@@ -311,8 +324,9 @@ def test_build_sa_lcp_matches_jax(monkeypatch, n):
 
 
 def test_build_sa_lcp_decline_tries_direct_once(monkeypatch):
-    """A declined text goes straight to doubling and PLCP, without a
-    second carried-keys attempt from the SA or LCP router."""
+    """A text both carried-keys builders decline goes straight to
+    doubling and PLCP, without a second attempt of either from the SA or
+    LCP router."""
     monkeypatch.setenv("SA_LCP_BIG_MIN", "10000")
     calls = []
 
@@ -321,10 +335,11 @@ def test_build_sa_lcp_decline_tries_direct_once(monkeypatch):
         raise NotImplementedError("synthetic refusal")
 
     monkeypatch.setattr(tbs, "build_suffix_array_direct", declines)
+    monkeypatch.setattr(tbs, "build_suffix_array_big", declines)
     text = ALNUM[_rng(42).integers(0, 62, 20_000)]
     info = {}
     sa, lcp = tsa.build_sa_lcp(text, device="cpu", info=info)
-    assert len(calls) == 1 and info["path"] == "doubling"
+    assert len(calls) == 2 and info["path"] == "doubling"
     want = suffix_array_oracle(text)
     assert np.array_equal(sa.numpy(), want)
     assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))

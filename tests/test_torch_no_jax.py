@@ -23,6 +23,11 @@ sa, lcp = tsa.build_suffix_array_direct(b"mississippi", device="cpu",
                                         want_lcp=True)
 assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
 assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
+sa, lcp = tsa.build_suffix_array_big(b"mississippi", device="cpu",
+                                     want_lcp=True, target_bucket=4,
+                                     chunk_elems=4)
+assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
+assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
 sa, lcp = tsa.build_sa_lcp(b"banana", device="cpu")
 assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")

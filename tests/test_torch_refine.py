@@ -288,6 +288,34 @@ def test_piece_bounds_start_at_heads():
             assert y - x <= target or not head[x + target:y].any()
 
 
+def test_piece_bounds_keep_pieces_within_target():
+    """Only one group longer than the target makes a longer piece."""
+    rng = np.random.default_rng(4)
+    head = torch.from_numpy(rng.random(20_000) < 0.3)
+    head[0] = True
+    head[5000:5100] = False             # one group of 101 rows
+    for target in (7, 64, 1000):
+        b = trf.piece_bounds(head, target)
+        assert all(bool(head[x]) for x in b[:-1])
+        for x, y in zip(b, b[1:]):
+            assert y - x <= target or not head[x + 1:y].any()
+
+
+def test_group_max_equal_to_piece_target(monkeypatch):
+    """SA_REFINE_GROUP_MAX equal to SA_REFINE_PIECE (the defaults, both
+    2^28) refines a text of several pieces: cutting at the first head
+    past each target made every piece overflow the cap."""
+    _force_refine(monkeypatch, SA_REFINE_PIECE=2048, SA_REFINE_GROUP_MAX=2048)
+    text = generate_words_text(1 << 16, seed=9)
+    info = {}
+    sa, lcp = tbs.build_suffix_array_direct(text, device="cpu",
+                                            want_lcp=True, info=info)
+    want = suffix_array_oracle(text)
+    assert np.array_equal(sa.numpy(), want)
+    assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))
+    assert info["refine_pieces"] >= 2
+
+
 def test_refine_round_matches_jax():
     """One round from fresh segments (words at depth 10): the segment
     partition, boundary LCP patches and the tied count equal JAX

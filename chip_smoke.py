@@ -10,8 +10,11 @@ Drives the port's main paths on the card and checks them:
      checkout's sources;
   3. kernels vs plain, exact, with both times (CUDA events, median of
      5): the pack kernel (K1) at the test shapes, in word mode (words
-     0-2, four packings, with and without minpad) and at 2^28 bytes of
-     random alnum and DNA; K2 block_digit_sort and K3 place_runs at
+     0-2 one at a time and in one three-word launch, four packings,
+     with and without minpad), at 2^28 bytes of random alnum and DNA as
+     the doubling rank, and at 2^28 random alnum in five modes (word 0,
+     word 1, a text view at an odd address, two words in one launch,
+     and the refinement's pair table into the columns of pk2); K2 block_digit_sort and K3 place_runs at
      rbits 4 and 8, 2^16 and 2^28, uniform and 95%-skewed keys (the
      first design of the pass, which the sort no longer runs); the onesweep kernels
      digit_histograms and onesweep_pass at rbits 4 and 8, 2^16 and 2^28,
@@ -44,9 +47,20 @@ Drives the port's main paths on the card and checks them:
      byte for byte, both timed warm; (c) the CLI's run() on 2^30 bytes
      of random alnum (made on the card from a seeded generator), which
      must take the MSD route, validate, and stay below the direct
-     route's 56.00 GiB peak at 2^30 (PERF.md). Each MSD run counts the
+     route's 56.00 GiB peak at 2^30 (PERF.md); its peak is then split
+     into the build, the LRS and the validator (chunked, and the fused
+     form for comparison), each phase after
+     torch.cuda.reset_peak_memory_stats. Each MSD run counts the
      kernels' launches: K1, digit_histograms and onesweep_pass, and no
-     K2 or K3.
+     K2 or K3;
+  9. the CLI's run() on 2^31 - 1 bytes of random alnum (made on the
+     card), validated by the chunked validator, on the MSD route, below
+     80 GiB.
+
+The K1 launches of the CLI runs are checked exactly: one (two key
+words) for 2^28 alnum, two (three key words, then the pair table) for
+2^28 words, and 32 (one per chunk in the count pass and the scatter)
+for 2^30 alnum.
 
 Any failed phase raises and the script exits nonzero. The line before
 the last is a JSON summary of the kernels, each row's ``launches`` read
@@ -82,14 +96,17 @@ from hpc_suffix_array_tpu_torch.core.bigsort import (
     build_suffix_array_big, direct_keys)
 from hpc_suffix_array_tpu_torch.core.lcp import (
     build_sa_lcp, lcp_from_plcp, plcp_kernel)
+from hpc_suffix_array_tpu_torch.core.refine import (
+    pair_table, refine_packing)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, as_byte_tensor, build_suffix_array_doubling)
+from hpc_suffix_array_tpu_torch.core.validate import validate_kernel
 from hpc_suffix_array_tpu_torch.datasets import (
     generate_dna_text, generate_random_text, generate_repetitive_text,
     generate_words_text)
 from hpc_suffix_array_tpu_torch.kernels import _build
 from hpc_suffix_array_tpu_torch.kernels.pack import (
-    pack_ranks, pack_ranks_reference)
+    pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     LookBack, block_digit_sort, block_digit_sort_reference, digit_histograms,
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
@@ -98,6 +115,7 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
 
 FULL_N = 1 << 28
 MSD_N = 1 << 30
+MAX_N = (1 << 31) - 1
 CHECK_SIZES = (1 << 22, 1 << 24)
 # The card's peaks (H100 SXM data sheet): HBM
 # bytes/s, and the float32 rate outside the tensor cores, which stands
@@ -107,6 +125,7 @@ ALU_OPS = 67e12
 # Peak of the direct route at 2^30 random alnum, measured on one H100
 # (PERF.md).
 DIRECT_PEAK_2E30 = 56.00 * 2**30
+CARD_BYTES = 80 * 2**30
 ALNUM = np.frombuffer(
     b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
     np.uint8)
@@ -208,6 +227,73 @@ def compare_pack(text: np.ndarray, remap: np.ndarray, bits: int, h0: int,
             lambda _: pack_ranks(t, r, bits, h0, n_real, offset))
         out["plain_ms"] = median_ms(
             lambda _: pack_ranks_reference(t, r, bits, h0, n_real, offset))
+    return out
+
+
+def compare_words(text: np.ndarray, table: np.ndarray, bits: int, spw: int,
+                  n_words: int, offset: int = 0) -> None:
+    """pack_words (n_words in one launch) against its plain version."""
+    t = torch.tensor(text, dtype=torch.uint8, device="cuda")
+    r = torch.tensor(table, dtype=torch.int32, device="cuda")
+    n = len(text)
+    for n_real, n_out in ((n, n), (n - 3, n - offset - 1)):
+        exact(pack_words(t, r, bits, spw, n_real, n_words, offset,
+                         max(n_out, 0)),
+              pack_words_reference(t, r, bits, spw, n_real, n_words, offset,
+                                   max(n_out, 0)),
+              f"pack_words n={n} bits={bits} spw={spw} words={n_words} "
+              f"offset={offset}")
+
+
+def k1_modes(text: np.ndarray, words: np.ndarray) -> dict:
+    """K1 at 2^28 in five modes, each exact against pack_words_reference
+    and timed beside it: word 0, word 1 (offset spw), a text view at an
+    odd address, two words in one launch (random alnum, bits 6, spw 5),
+    and the refinement's pair table on the words text (two words into
+    the columns of pk2)."""
+    t = torch.tensor(text, dtype=torch.uint8, device="cuda")
+    remap, _, _ = alphabet_remap(text)
+    tab = torch.tensor(remap, dtype=torch.int32, device="cuda")
+    n = len(text)
+    view = t[3:]
+    modes = {
+        "word0": (t, 1, 0),
+        "word1": (t, 1, 5),
+        "view3": (view, 1, 0),
+        "two_words": (t, 2, 0),
+    }
+    out = {}
+    for name, (tt, nw, off) in modes.items():
+        m = tt.shape[0]
+
+        def kern(_, tt=tt, nw=nw, off=off, m=m):
+            return pack_words(tt, tab, 6, 5, m, nw, off)
+
+        def plain(_, tt=tt, nw=nw, off=off, m=m):
+            return pack_words_reference(tt, tab, 6, 5, m, nw, off)
+
+        err = exact(kern(None), plain(None), f"K1 2^28 {name}")
+        out[name] = {"max_abs_err": err, "ms": median_ms(kern),
+                     "plain_ms": median_ms(plain), "rows": m,
+                     "n_words": nw}
+    del t, view
+    tw = torch.tensor(words, dtype=torch.uint8, device="cuda")
+    wremap, _, _ = alphabet_remap(words)
+    bits, spw = refine_packing(int(wremap.max()))
+    wtab = torch.tensor(wremap, dtype=torch.int32, device="cuda")
+    pk2 = pair_table(tw, wremap)
+    cols = [torch.empty(n, dtype=torch.int32, device="cuda")
+            for _ in range(2)]
+    err = exact([pk2[:n, 0], pk2[:n, 1]],
+                pack_words_reference(tw, wtab, bits, spw, n, 2, out=cols),
+                "K1 2^28 pk2")
+    if pk2[n].any():
+        raise AssertionError("pk2's all-pad row is not 0")
+    out["pk2"] = {
+        "max_abs_err": err, "rows": n, "n_words": 2,
+        "ms": median_ms(lambda _: pair_table(tw, wremap)),
+        "plain_ms": median_ms(lambda _: pack_words_reference(
+            tw, wtab, bits, spw, n, 2, out=[pk2[:n, 0], pk2[:n, 1]]))}
     return out
 
 
@@ -444,9 +530,10 @@ def check_corpus(name: str, text: np.ndarray):
     return route, want_sa, want_lcp
 
 
-MAIN_PATH_KERNELS = ("pack_ranks", "digit_histograms", "onesweep_pass")
+MAIN_PATH_KERNELS = ("pack_words", "digit_histograms", "onesweep_pass")
 SPLIT_PASS_KERNELS = ("block_digit_sort", "place_runs")
-COUNTED = {"pack_ranks": pack_ranks, "digit_histograms": digit_histograms,
+COUNTED = {"pack_ranks": pack_ranks, "pack_words": pack_words,
+           "digit_histograms": digit_histograms,
            "onesweep_pass": onesweep_pass,
            "block_digit_sort": block_digit_sort, "place_runs": place_runs}
 
@@ -476,10 +563,18 @@ def check_launches(counts: dict, name: str) -> None:
         raise AssertionError(f"{name}: main path launched {old}")
 
 
+def k1_bound(r: dict) -> dict:
+    """K1's bound: each text byte read once, each int32 word written
+    once; spw = 5 shift-ors per word and row."""
+    rows, nw = r["rows"], r["n_words"]
+    return bound(rows + 4 * nw * rows + 256 * 4, 2 * 5 * nw * rows)
+
+
 def run_cli(text: np.ndarray, name: str, arrays: dict | None = None,
-            path: str = "direct"):
+            path: str = "direct", k1: int | None = None):
     """cli.run with validation on route ``path``; returns (results,
-    launches, peak bytes). Fails if the build took another route."""
+    launches, peak bytes). Fails if the build took another route or, with
+    ``k1``, launched K1 another number of times."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
@@ -495,8 +590,44 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None,
         raise AssertionError(f"{name} did not take the {path} route:\n"
                              + report)
     check_launches(counts, name)
+    if k1 is not None and (counts["pack_words"], counts["pack_ranks"]) != (
+            k1, 0):
+        raise AssertionError(f"{name}: K1 launched {counts['pack_words']} "
+                             f"+ {counts['pack_ranks']} times, not {k1}")
     counts.update(passes())
     return res, counts, peak
+
+
+def peak_split(text: np.ndarray) -> dict:
+    """The CLI's phases on ``text`` one by one, as ``cli.run`` runs them
+    above 8 MiB, with the peak reset before each: the fused SA+LCP
+    build, the LRS, the validator as the CLI calls it, and the fused
+    validator for comparison (GiB, and seconds on the host clock)."""
+    out = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = {"peak_gib": round(
+            torch.cuda.max_memory_allocated() / 2**30, 2),
+            "s": round(time.perf_counter() - t0, 3)}
+        return got
+
+    torch.cuda.empty_cache()
+    t = step("staging", lambda: as_byte_tensor(text, "cuda"))
+    sa, lcp = step("build_sa_lcp", lambda: build_sa_lcp(
+        text, device="cuda", text_dev=t))
+    step("lrs", lambda: find_longest_repeated_substring(t, sa, lcp,
+                                                        device="cuda"))
+    ok = step("validate", lambda: is_valid_suffix_array(t, sa,
+                                                        device="cuda"))
+    fused = step("validate_fused", lambda: bool(validate_kernel(t, sa)))
+    if not (ok and fused):
+        raise AssertionError("peak split: the validator rejected the SA")
+    return out
 
 
 def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
@@ -644,7 +775,11 @@ def main() -> int:
                 for word in range(3):
                     compare_pack(text, table, bits, spw, n, word * spw)
                     n_word += 1
-    phase(f"[3] pack word mode: {n_word} cases exact (words 0-2, (bits, "
+                for offset in (0, 1, 7):
+                    compare_words(text, table, bits, spw, 3, offset)
+                    n_word += 1
+    phase(f"[3] pack word mode: {n_word} cases exact (words 0-2 one at a "
+          f"time, and three words in one launch at offsets 0, 1, 7; (bits, "
           f"spw) {WORD_CASES}, n {WORD_SIZES}, with and without minpad)")
     alnum = generate_random_text(FULL_N, SEED)
     for name, text in (("random alnum", alnum),
@@ -653,11 +788,14 @@ def main() -> int:
         r = compare_pack(text, remap, bits, h0, FULL_N, timed=True)
         phase(f"[3] pack {name} n=2^28 bits={bits} h0={h0}: exact; kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({card})")
-    remap, _, _ = alphabet_remap(alnum)
-    k1 = compare_pack(alnum, remap, 6, 5, FULL_N, offset=5, timed=True)
-    phase(f"[3] pack word 1 random alnum n=2^28 (bits 6, spw 5): exact; "
-          f"kernel {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms "
-          f"({card})")
+    words = generate_words_text(FULL_N, SEED)
+    k1 = k1_modes(alnum, words)
+    for name, r in k1.items():
+        r.update(k1_bound(r))
+        phase(f"[3] K1 n=2^28 {name} ({r['n_words']} word(s)): exact; "
+              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({card})")
+    torch.cuda.empty_cache()
     radix_err = {"k2": 0, "k3": 0}
     k23 = None
     for n in (1 << 16, FULL_N):
@@ -733,7 +871,7 @@ def main() -> int:
 
     # 5) full size, main path: the direct route through the CLI
     arrays: dict = {}
-    res, counts, peak = run_cli(alnum, "random_alnum_2^28", arrays)
+    res, counts, peak = run_cli(alnum, "random_alnum_2^28", arrays, k1=1)
     phase(f"[5] cli.run n=2^28 random alnum: Valid suffix array: YES; "
           f"PATH:{res['path']} n_words={res.get('n_words')} chain_mode="
           f"{res.get('chain_mode')} rerun={res.get('rerun')}; SA "
@@ -756,14 +894,11 @@ def main() -> int:
           f"launches {json.dumps(counts)} ({card})")
 
     # 7) natural text through the CLI: the direct route with refinement
-    words = generate_words_text(FULL_N, SEED)
     arrays = {}
-    res, words_counts, peak = run_cli(words, "words_2^28", arrays)
+    # One K1 launch for the key words, one for the refinement's pk2.
+    res, words_counts, peak = run_cli(words, "words_2^28", arrays, k1=2)
     if not res.get("refine_members") or res.get("declined"):
         raise AssertionError(f"words at 2^28 did not refine: {res}")
-    if words_counts["pack_ranks"] < res["n_words"] + 2:
-        raise AssertionError("words at 2^28: the refinement's pair table "
-                             "did not go through the pack kernel")
     phase(f"[7] cli.run n=2^28 words: Valid suffix array: YES; "
           f"PATH:{res['path']} n_words={res.get('n_words')} "
           f"{json.dumps({k: res.get(k) for k in REFINE_KEYS})}; SA "
@@ -780,8 +915,7 @@ def main() -> int:
     del alnum
     torch.cuda.empty_cache()
     big = alnum_on_card(MSD_N, SEED)
-    res, counts, peak = run_cli(big, "random_alnum_2^30", path="msd")
-    del big
+    res, counts, peak = run_cli(big, "random_alnum_2^30", path="msd", k1=32)
     if peak >= DIRECT_PEAK_2E30:
         raise AssertionError(f"MSD 2^30 peak {peak / 2**30:.2f} GiB is not "
                              "below the direct route's 56.00 GiB")
@@ -789,6 +923,23 @@ def main() -> int:
           f"PATH:{res['path']}; SA_TIME {res['sa_time']:.3f} s, TOTAL_TIME "
           f"{res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
           f"launches {json.dumps(counts)} ({card})")
+    split = peak_split(big)
+    del big
+    phase(f"[8c] peak split n=2^30 (the CLI's phases, peak reset before "
+          f"each): {json.dumps(split)} ({card})")
+    torch.cuda.empty_cache()
+
+    # 9) the largest text the package accepts, validated through the CLI
+    big = alnum_on_card(MAX_N, SEED)
+    res, counts, peak = run_cli(big, "random_alnum_2^31-1", path="msd")
+    del big
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"2^31 - 1 peak {peak / 2**30:.2f} GiB")
+    phase(f"[9] cli.run n=2^31-1 random alnum: Valid suffix array: YES "
+          f"(chunked validator); PATH:{res['path']}; SA_TIME "
+          f"{res['sa_time']:.3f} s, TOTAL_TIME {res['total_time']:.3f} s; "
+          f"peak {peak / 2**30:.2f} GiB; launches {json.dumps(counts)} "
+          f"({card})")
 
     n = FULL_N
     tiles = n // 4096
@@ -796,10 +947,13 @@ def main() -> int:
         {"name": "pack_ranks", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
          "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
-         "launches": words_counts["pack_ranks"],
-         "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         **bound(n + 4 * n + 256 * 4, 3 * 5 * n)},
+         "launches": words_counts["pack_ranks"] + words_counts["pack_words"],
+         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
+         "ms": k1["word1"]["ms"], "plain_ms": k1["word1"]["plain_ms"],
+         **k1_bound(k1["word1"]),
+         **{f"{mode}_{key}": k1[mode][key]
+            for mode in ("word0", "view3", "two_words", "pk2")
+            for key in ("ms", "plain_ms", "bound_ms")}},
         {"name": "digit_histograms", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:213",

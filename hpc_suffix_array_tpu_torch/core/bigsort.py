@@ -8,8 +8,9 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      alphabets take the denser ``minpad`` packing). Each suffix gets
      ``nw`` (2, or 3 for small alphabets whose 2-word residue would
      overflow) words covering its first ``nw*spw`` symbols.
-  2. *Keys (device)*: word w is the pack kernel (K1, ``kernels/pack.py``)
-     at word offset ``w*spw``; minpad feeds it the table
+  2. *Keys (device)*: one launch of the pack kernel (K1,
+     ``kernels/pack.py::pack_words``) writes all ``nw`` words, word w
+     folding the symbols from ``w*spw``; minpad feeds it the table
      ``max(remap - 1, 0)``.
   3. *Sort (device)*: ``kernels/radix.py::radix_sort_words``, the
      hand-written onesweep LSD radix sort, with the positions as
@@ -80,7 +81,7 @@ import torch
 
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, alphabet_remap_dev, as_byte_array, device_text)
-from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
+from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     MAX_RADIX, LookBack, onesweep_pass, radix_sort_words)
 
@@ -243,11 +244,10 @@ def direct_keys(text: torch.Tensor, remap: np.ndarray, bits: int, spw: int,
                 nw: int, minpad: bool) -> list[torch.Tensor]:
     """The ``nw`` carried key words (int32[n] each) of uint8 ``text``:
     word w packs the spw codes from i + w*spw, 0 past n (the JAX
-    package's ``_direct_keys`` without its PAD_KEY rows)."""
+    package's ``_direct_keys`` without its PAD_KEY rows), in one K1
+    launch."""
     table_t = key_table(remap, minpad, text.device)
-    n = text.shape[0]
-    return [pack_ranks(text, table_t, bits, spw, n, offset=w * spw)
-            for w in range(nw)]
+    return pack_words(text, table_t, bits, spw, text.shape[0], nw)
 
 
 def key_table(remap: np.ndarray, minpad: bool, device) -> torch.Tensor:
@@ -882,15 +882,13 @@ def prepare_big(text, *, device, target_bucket: int | None = None,
 
 
 def _chunk_keys(state: dict, c: int, n_words: int) -> list[torch.Tensor]:
-    """Key words k0 (and k1) of chunk c's positions, by K1 on the chunk's
-    text plus the 2*spw bytes after it (0 past n)."""
-    plan, t = state["plan"], state["text_dev"]
+    """Key words k0 (and k1) of chunk c's positions (0 past n), in one
+    K1 launch over the chunk's rows."""
+    plan = state["plan"]
     s = c * plan.m
     e = min(s + plan.m, plan.n)
-    seg = t[s:min(e + 2 * plan.spw, plan.n)]
-    return [pack_ranks(seg, state["table"], plan.bits, plan.spw,
-                       seg.shape[0], offset=w * plan.spw)[:e - s]
-            for w in range(n_words)]
+    return pack_words(state["text_dev"], state["table"], plan.bits,
+                      plan.spw, plan.n, n_words, offset=s, n_out=e - s)
 
 
 def _bucket_ids(keys, edges: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,11 @@ from the direct or MSD builder's sorted keys (``core/bigsort.py``,
 ``build_lcp_array`` uses them above ``SA_LCP_BIG_MIN`` and for texts of
 deep repeats between ``SA_LCP_CHAIN_MIN`` and ``SA_LCP_WINDOW_MIN``, and
 PLCP otherwise. The JAX package's window and sorted-fetch routes are not
-ported: where it would take them, the port keeps PLCP.
+ported: where it would take them, the port keeps PLCP. Past the
+doubling reach, where no carried-keys build derived the LCP, host Kasai
+on the supplied SA closes it (``lcp_path`` "kasai_host"), as host SA-IS
+and Kasai close ``build_sa_lcp``: PLCP's int32 positions stop at
+``PLCP_MAX``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ CMP_WIDTH = 32
 CHUNK = 1 << 22
 # Pointer-jumping steps per round (each approximately doubles verified runs).
 JUMP_STEPS = 2
+# Largest n PLCP takes: the extension's int32 positions (iota + cur +
+# offs, up to n - 1 + CMP_WIDTH) must not wrap.
+PLCP_MAX = (1 << 31) - 1 - CMP_WIDTH
 
 
 # Route thresholds of the JAX package (bytes; set on a TPU), read from
@@ -140,8 +147,13 @@ def _plcp_round(text, phi, limit, iota, cur, resolved):
 
 
 def plcp_kernel(text: torch.Tensor, sa: torch.Tensor):
-    """(plcp int32[n], rounds): plcp[i] = LCP(suffix i, its SA predecessor)."""
+    """(plcp int32[n], rounds): plcp[i] = LCP(suffix i, its SA predecessor).
+
+    Raises ValueError above ``PLCP_MAX`` positions."""
     n = text.shape[0]
+    if n > PLCP_MAX:
+        raise ValueError(f"PLCP takes at most {PLCP_MAX} positions (int32 "
+                         f"positions), got {n}")
     phi, limit, iota = _plcp_setup(sa)
     cur = torch.zeros(n, dtype=torch.int32, device=text.device)
     resolved = phi < 0
@@ -191,12 +203,17 @@ def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
 
 def _sais_kasai(text, dev: torch.device, info: dict | None):
     """(sa, lcp) from host SA-IS and Kasai (native C, O(n)), on ``dev``."""
-    from hpc_suffix_array_tpu_torch import native
-
     host = as_byte_array(text)
     sa = sais_host_fallback(host, device="cpu", info=info)
-    lcp = torch.from_numpy(native.lcp_kasai(host, sa.numpy()))
-    return sa.to(dev), lcp.to(dev)
+    return sa.to(dev), _kasai_host(host, sa, dev)
+
+
+def _kasai_host(host: np.ndarray, sa: torch.Tensor,
+                dev: torch.device) -> torch.Tensor:
+    """LCP of ``sa`` by host Kasai (native C, O(n)), on ``dev``."""
+    from hpc_suffix_array_tpu_torch import native
+
+    return torch.from_numpy(native.lcp_kasai(host, sa.cpu().numpy())).to(dev)
 
 
 def build_sa_lcp(text, *, device, info: dict | None = None,
@@ -243,9 +260,10 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
     carried-keys build (direct or MSD), which derives the order from the
     text itself: the supplied ``sa`` is then checked against the derived
     one, and a mismatch raises ValueError. Otherwise, and when that build
-    declines, PLCP. ``text_dev`` as in ``build_suffix_array``.
-    ``info``: optional dict that receives ``lcp_path`` ("direct", "msd"
-    or "plcp") and, for PLCP, ``plcp_rounds``."""
+    declines, PLCP up to the doubling reach and host Kasai on ``sa``
+    past it. ``text_dev`` as in ``build_suffix_array``.
+    ``info``: optional dict that receives ``lcp_path`` ("direct", "msd",
+    "plcp" or "kasai_host") and, for PLCP, ``plcp_rounds``."""
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]
@@ -275,6 +293,10 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
         if info is not None:
             info["lcp_path"] = route["path"]
         return lcp
+    if n > doubling_reach():
+        if info is not None:
+            info["lcp_path"] = "kasai_host"
+        return _kasai_host(as_byte_array(text), sa, dev)
     if info is not None:
         info["lcp_path"] = "plcp"
     return _plcp_lcp(t, sa, info)

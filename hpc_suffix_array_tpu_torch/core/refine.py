@@ -11,7 +11,7 @@ module orders them on the device, as the JAX package does:
      ``SA_REFINE_PIECE`` rows at group heads, so each group lies in
      exactly one piece.
   2. *Refine* each piece by rounds: gather the next ``2*spw`` symbols of
-     each row as a pair of packed words (``pk2``, two K1 launches), sort
+     each row as a pair of packed words (``pk2``, one K1 launch), sort
      the rows by (segment, word 0, word 1) with the onesweep radix sort,
      split segments where the words differ, and record the exact LCP of
      each new boundary from the highest set bit of the words' xor.
@@ -49,7 +49,7 @@ import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
     _apply_residue, _high_bit, _sync)
-from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
+from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
 
 
@@ -85,15 +85,15 @@ def refine_packing(sigma: int) -> tuple[int, int]:
 
 def pair_table(text: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     """pk2 int32[n + 1, 2]: row i holds the reserved-0 words at i and at
-    i + spw (K1 at word offsets 0 and spw); row n is the all-pad word
-    pair, which the rounds read for every window that starts at n."""
+    i + spw (one two-word K1 launch into pk2's columns); row n is the
+    all-pad word pair, which the rounds read for every window that
+    starts at n."""
     n = text.shape[0]
     bits, spw = refine_packing(int(remap.max()))
     table = torch.as_tensor(remap.astype(np.int32)).to(text.device)
-    pk2 = torch.zeros((n + 1, 2), dtype=torch.int32, device=text.device)
-    for col in range(2):
-        pk2[:n, col] = pack_ranks(text, table, bits, spw, n,
-                                  offset=col * spw)
+    pk2 = torch.empty((n + 1, 2), dtype=torch.int32, device=text.device)
+    pk2[n] = 0
+    pack_words(text, table, bits, spw, n, 2, out=[pk2[:n, 0], pk2[:n, 1]])
     return pk2
 
 

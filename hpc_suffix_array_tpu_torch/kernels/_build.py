@@ -97,12 +97,9 @@ def load() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         so.with_suffix(".log").write_text(build_log)
     lib = ctypes.CDLL(str(so))
-    lib.sa_pack_ranks.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.sa_pack_ranks.restype = ctypes.c_int
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sa_pack_words.argtypes = [ptr] * 5 + [i64] * 4 + [i32] * 3 + [ptr]
+    lib.sa_pack_words.restype = ctypes.c_int
     cols = [ptr] * 8 + [i32, i32, i64, i32, i32]
     lib.sa_block_digit_sort.argtypes = cols + [ptr, ptr]
     lib.sa_block_digit_sort.restype = ctypes.c_int

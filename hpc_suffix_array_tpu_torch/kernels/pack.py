@@ -1,17 +1,27 @@
-"""Packed initial ranks: the hand-written kernel and its plain version.
+"""Packed key words (K1): the hand-written kernel and its plain version.
 
-out[i] = sum_{j<h0} code(i+offset+j) << bits*(h0-1-j), with
-code(p) = remap[text[p]] for p < n_real and 0 past it.
+Word w of row i folds the spw codes from i + offset + w*spw:
 
-``offset`` 0 gives the doubling builder's initial ranks; ``offset =
-w*spw`` gives key word w of the carried-keys builder (the JAX package's
-``core/bigsort.py::_direct_keys``, an XLA fold at a word offset).
+  word_w[i] = sum_{j<spw} code(i+offset+w*spw+j) << bits*(spw-1-j),
+  code(p) = table[text[p]] for p < n_real and 0 past it.
 
-``pack_ranks`` launches ``csrc/pack.cu`` for a CUDA tensor (the port of
+``offset`` 0 and one word give the doubling builder's initial ranks
+(``pack_ranks``, h0 = spw); words 0..nw-1 are the carried-keys builders'
+key words (the JAX package's ``core/bigsort.py::_direct_keys`` and
+``_dev_pack_word``, XLA folds at a word offset); two words into the
+columns of one (rows, 2) table are the refinement's pair table.
+
+Precondition: every table entry is below 2^bits (every table the port
+builds is: codes 0..sigma with sigma < 2^bits). The kernel's rolling
+fold keeps the last spw codes by a mask, which equals the sum above only
+then; ``_check_args`` enforces bits*spw <= 30.
+
+``pack_words`` and ``pack_ranks`` launch ``csrc/pack.cu`` (the port of
 ``hpc_suffix_array_tpu/kernels/pack.py::pack_ranks_pallas``, fused with
-the remap gather and mask around it) and runs ``pack_ranks_reference``
-for a CPU tensor. There is no fallback between the two: a CUDA call
-launches the kernel or raises.
+the remap gather and mask around it) for a CUDA tensor, and run
+``pack_words_reference`` / ``pack_ranks_reference`` for a CPU tensor.
+There is no fallback between the two: a CUDA call launches the kernel
+or raises. Each entry point counts its own launches.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from hpc_suffix_array_tpu_torch.kernels import _build
 
 
 def _check_args(text, remap, bits: int, h0: int, n_real: int,
-                offset: int) -> None:
+                offset: int, n_words: int = 1, n_out: int = 0) -> None:
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError(f"text must be uint8[n], got {text.dtype} "
                         f"{tuple(text.shape)}")
@@ -40,6 +50,27 @@ def _check_args(text, remap, bits: int, h0: int, n_real: int,
         raise ValueError(f"n_real={n_real} outside [0, {text.shape[0]}]")
     if offset < 0:
         raise ValueError(f"offset={offset} must be >= 0")
+    if not 1 <= n_words <= 3:
+        raise ValueError(f"n_words={n_words} outside [1, 3]")
+    if n_out < 0:
+        raise ValueError(f"n_out={n_out} must be >= 0")
+
+
+def _check_out(out, n_words: int, n_out: int, device) -> list:
+    """``out``: n_words int32 tensors of n_out rows with one element
+    stride (contiguous, or the columns of a row-major table)."""
+    out = list(out)
+    if len(out) != n_words:
+        raise ValueError(f"out has {len(out)} tensors, need {n_words}")
+    for o in out:
+        if (o.dtype != torch.int32 or o.dim() != 1 or o.shape[0] != n_out
+                or o.device != device):
+            raise TypeError(f"out tensors must be int32[{n_out}] on "
+                            f"{device}, got {o.dtype} {tuple(o.shape)} on "
+                            f"{o.device}")
+        if o.stride(0) != out[0].stride(0) or o.stride(0) < 1:
+            raise ValueError("out tensors need one positive element stride")
+    return out
 
 
 def pack_ranks_reference(text: torch.Tensor, remap: torch.Tensor, bits: int,
@@ -59,9 +90,80 @@ def pack_ranks_reference(text: torch.Tensor, remap: torch.Tensor, bits: int,
     return out
 
 
+def pack_words_reference(text: torch.Tensor, table: torch.Tensor, bits: int,
+                         spw: int, n_real: int, n_words: int,
+                         offset: int = 0, n_out: int | None = None,
+                         out=None) -> list[torch.Tensor]:
+    """Plain version of ``pack_words``: ``pack_ranks_reference`` per
+    word on the text from ``offset``, written into the same layout."""
+    n_out = text.shape[0] if n_out is None else int(n_out)
+    _check_args(text, table, bits, spw, n_real, offset, n_words, n_out)
+    seg = text[offset:offset + n_out + n_words * spw]
+    real = min(max(n_real - offset, 0), seg.shape[0])
+    if seg.shape[0] < n_out:
+        seg = torch.cat([seg, seg.new_zeros(n_out - seg.shape[0])])
+    words = [pack_ranks_reference(seg, table, bits, spw, real,
+                                  w * spw)[:n_out]
+             for w in range(n_words)]
+    if out is None:
+        return words
+    out = _check_out(out, n_words, n_out, text.device)
+    for o, w in zip(out, words):
+        o.copy_(w)
+    return out
+
+
+def _launch(text, table, bits, spw, n_real, n_words, offset, n_out,
+            out) -> list[torch.Tensor]:
+    """One K1 launch on the current stream (arguments checked)."""
+    if text.device.type != "cuda":
+        raise ValueError(f"pack kernel: unsupported device {text.device}")
+    if out is None:
+        out = [torch.empty(n_out, dtype=torch.int32, device=text.device)
+               for _ in range(n_words)]
+    else:
+        out = _check_out(out, n_words, n_out, text.device)
+    if n_out == 0:
+        return out
+    lib = _build.load()
+    ptrs = [o.data_ptr() for o in out] + [0] * (3 - n_words)
+    with torch.cuda.device(text.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_pack_words(text.data_ptr(), table.data_ptr(), *ptrs,
+                                out[0].stride(0), n_out, n_real, offset,
+                                bits, spw, n_words, stream)
+    _build.check(err, "sa_pack_words")
+    return out
+
+
+def pack_words(text: torch.Tensor, table: torch.Tensor, bits: int, spw: int,
+               n_real: int, n_words: int, offset: int = 0,
+               n_out: int | None = None, out=None) -> list[torch.Tensor]:
+    """``n_words`` (1-3) packed words of ``n_out`` rows (default: the
+    text's length) of uint8 ``text`` (see module doc), in one launch that
+    reads the text once.
+
+    Returns a list of contiguous int32[n_out] tensors, or writes into
+    ``out``: n_words int32[n_out] tensors with one element stride, e.g.
+    the columns of a row-major int32[rows, n_words] table. On a CUDA
+    tensor this launches the kernel on the current stream and adds one
+    to ``pack_words.launches`` (none for 0 rows); on a CPU tensor it runs
+    ``pack_words_reference``."""
+    n_out = text.shape[0] if n_out is None else int(n_out)
+    _check_args(text, table, bits, spw, n_real, offset, n_words, n_out)
+    if text.device.type == "cpu":
+        return pack_words_reference(text, table, bits, spw, n_real, n_words,
+                                    offset, n_out, out)
+    out = _launch(text, table, bits, spw, n_real, n_words, offset, n_out,
+                  out)
+    pack_words.launches += int(n_out > 0)
+    return out
+
+
 def pack_ranks(text: torch.Tensor, remap: torch.Tensor, bits: int, h0: int,
                n_real: int, offset: int = 0) -> torch.Tensor:
-    """Packed initial ranks int32[n] of uint8 ``text`` (see module doc).
+    """Packed initial ranks int32[n] of uint8 ``text``: one word of
+    ``h0`` codes per position (see module doc).
 
     On a CUDA tensor this launches the kernel on the current stream and
     adds one to ``pack_ranks.launches``; on a CPU tensor it returns
@@ -69,21 +171,11 @@ def pack_ranks(text: torch.Tensor, remap: torch.Tensor, bits: int, h0: int,
     _check_args(text, remap, bits, h0, n_real, offset)
     if text.device.type == "cpu":
         return pack_ranks_reference(text, remap, bits, h0, n_real, offset)
-    if text.device.type != "cuda":
-        raise ValueError(f"pack_ranks: unsupported device {text.device}")
-    lib = _build.load()
-    n = text.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=text.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(text.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sa_pack_ranks(text.data_ptr(), remap.data_ptr(),
-                                out.data_ptr(), n, n_real, offset, bits, h0,
-                                stream)
-    _build.check(err, "sa_pack_ranks")
-    pack_ranks.launches += 1
+    out = _launch(text, remap, bits, h0, n_real, 1, offset, text.shape[0],
+                  None)[0]
+    pack_ranks.launches += int(out.shape[0] > 0)
     return out
 
 
+pack_words.launches = 0
 pack_ranks.launches = 0

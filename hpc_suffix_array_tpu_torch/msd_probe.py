@@ -1,4 +1,5 @@
-"""Measurements of the MSD bucket builder on one CUDA card.
+"""Measurements of the MSD bucket builder, and of the validator the CLI
+runs after it, on one CUDA card.
 
     python hpc_suffix_array_tpu_torch/msd_probe.py MODE [MODE ...]
 
@@ -21,7 +22,16 @@ Modes:
             peak, and 2^16 sampled adjacent SA pairs checked on the host;
   route     warm ``build_sa_lcp`` at 2^30 random alnum on whatever
             route the importable package takes (point ``PYTHONPATH`` at
-            a checkout of another commit to time its route).
+            a checkout of another commit to time its route);
+  warm      warm ``build_sa_lcp`` on 2^28 words (direct route with
+            refinement) and 2^30 random alnum (MSD, with its count and
+            scatter phases), three runs each after a warm-up, on
+            whatever package is importable (as ``route``);
+  validate  the validator at 2^26, 2^28 and 2^30 random alnum with the
+            build's SA and LCP alive (as in the CLI): the fused form and
+            the chunked form at widths 2^24-2^27, each warmed once, then
+            timed five times in alternating order (host clock, synced),
+            with the peak above what was allocated before the call.
 
 Texts are made on the card from a seeded ``torch.Generator`` (words on
 the host, in batches) and copied to the host once.
@@ -256,8 +266,71 @@ def mode_route() -> None:
         torch.cuda.empty_cache()
 
 
+def mode_warm() -> None:
+    from hpc_suffix_array_tpu_torch.datasets import generate_words_text
+
+    for name, text in (("words 2^28", generate_words_text(1 << 28, 0)),
+                       ("alnum 2^30", alnum_text(1 << 30))):
+        t = torch.from_numpy(text).cuda()
+        ms, phases = [], []
+        for rep in range(4):
+            s, info, sa, lcp = timed_sa_lcp(text, t, None)
+            del sa, lcp
+            if rep:
+                ms.append(round(s * 1e3, 2))
+                host = info.get("phase_host_s") or {}
+                phases.append({k: round(host[k] * 1e3, 2)
+                               for k in ("count", "scatter") if k in host})
+        say("warm", f"{name} build_sa_lcp path {info.get('path')}: ms {ms}; "
+                    f"MSD count/scatter ms {json.dumps(phases)}")
+        del t
+        torch.cuda.empty_cache()
+
+
+def mode_validate() -> None:
+    from hpc_suffix_array_tpu_torch.core import validate as tval
+    from hpc_suffix_array_tpu_torch.core.lcp import build_sa_lcp
+
+    for k in (26, 28, 30):
+        n = 1 << k
+        text = alnum_text(n)
+        t = torch.from_numpy(text).cuda()
+        sa, lcp = build_sa_lcp(text, device="cuda", text_dev=t)
+        forms = [("fused", None)] + [(f"chunk 2^{c}", 1 << c)
+                                     for c in (24, 25, 26, 27) if c <= k]
+
+        def run(width):
+            if width is None:
+                return bool(tval.validate_kernel(t, sa))
+            return tval.validate_chunked(t, sa, width)
+
+        times = {name: [] for name, _ in forms}
+        peaks = {}
+        for rep in range(6):
+            for name, width in (forms if rep % 2 else forms[::-1]):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                ok = run(width)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                if not ok:
+                    raise AssertionError(f"validate {name} rejected the SA")
+                if rep:                       # rep 0 is the warm-up
+                    times[name].append(round(dt, 2))
+                peaks[name] = gib(torch.cuda.max_memory_allocated() - base)
+        say("validate", f"n=2^{k} alnum, {gib(base)} allocated before "
+                        f"(text, sa, lcp): ms {json.dumps(times)}; peak "
+                        f"above that {json.dumps(peaks)}")
+        del t, sa, lcp
+        torch.cuda.empty_cache()
+
+
 MODES = {"check": mode_check, "cross": mode_cross, "geometry": mode_geometry,
-         "words30": mode_words30, "n31": mode_n31, "route": mode_route}
+         "words30": mode_words30, "n31": mode_n31, "route": mode_route,
+         "validate": mode_validate, "warm": mode_warm}
 
 
 if __name__ == "__main__":

@@ -110,6 +110,19 @@ def test_lcp_rejects_wrong_length():
                             device="cpu")
 
 
+def test_plcp_rejects_past_int32_positions():
+    """PLCP's extension builds int32 positions up to n - 1 + CMP_WIDTH:
+    a longer text raises before any work (meta tensors: no storage)."""
+    from hpc_suffix_array_tpu_torch.core import lcp as tlcp
+
+    for n in (tlcp.PLCP_MAX + 1, 1 << 31):
+        text = torch.empty(n, dtype=torch.uint8, device="meta")
+        sa = torch.empty(n, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="PLCP takes at most"):
+            plcp_kernel(text, sa)
+    assert tlcp.PLCP_MAX == (1 << 31) - 1 - tlcp.CMP_WIDTH
+
+
 def _corruptions(sa):
     swapped = sa.copy()
     swapped[[1, 2]] = swapped[[2, 1]]

@@ -203,6 +203,29 @@ def test_sais_host_past_doubling_reach(monkeypatch, entry):
     assert "refinement rounds" in info["declined"]
 
 
+def test_kasai_host_lcp_past_doubling_reach(monkeypatch):
+    """build_lcp_array on a declined text past the (lowered) doubling
+    reach: host Kasai on the supplied SA, never PLCP."""
+    import hpc_suffix_array_tpu_torch.core.lcp as tlcp
+
+    _force_refine(monkeypatch, SA_REFINE_ROUNDS=0, SA_REFINE_HOST_PIECE=0)
+    monkeypatch.setenv("SA_BIG_THRESHOLD", str(1 << 14))
+    monkeypatch.setenv("SA_LCP_BIG_MIN", str(1 << 14))
+    monkeypatch.setattr(tsuf, "DOUBLING_REACH", 1 << 15)
+
+    def no_plcp(*args, **kwargs):
+        raise AssertionError("PLCP ran past the doubling reach")
+
+    monkeypatch.setattr(tlcp, "plcp_kernel", no_plcp)
+    text = generate_words_text(1 << 16, seed=4)
+    want = suffix_array_oracle(text)
+    info = {}
+    lcp = tsa.build_lcp_array(text, want, device="cpu", info=info)
+    assert lcp.dtype == torch.int32 and lcp.device.type == "cpu"
+    assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))
+    assert info["lcp_path"] == "kasai_host"
+
+
 def test_sais_host_fallback_matches_jax():
     from hpc_suffix_array_tpu.core.suffix_array import sais_host_fallback
 

@@ -55,7 +55,25 @@ Drives the port's main paths on the card and checks them:
      K2 or K3;
   9. the CLI's run() on 2^31 - 1 bytes of random alnum (made on the
      card), validated by the chunked validator, on the MSD route, below
-     80 GiB.
+     80 GiB;
+ 10. the measurement path on the card: the micro benchmark at the quick
+     sizes; the corpus harness in twin mode (corpora made on the card)
+     over random, DNA, repetitive and words at 256 MB (direct route) and
+     random at 1,024 MB (MSD), every row a success on platform cuda
+     with the kernels' launches counted, the CSV read back with the
+     harness's columns and the statistics report written; validated
+     runs of words at 256 MB and random at 1,024 MB; one file-mode row
+     on a 50 MB corpus file that this run writes, and the CLI's main()
+     on the same file, whose output must parse to the same size and
+     PATH;
+ 11. the device trace: one warm build_sa_lcp at 2^30 random alnum (MSD)
+     and one at 2^28 words inside utils.profiling.device_trace; each
+     trace must hold the onesweep pass and the K1 kernel by name; the
+     ten device operations with the most time, the device's idle share
+     of the window and its longest idle gaps are printed; then the
+     CLI's main() with --trace on a small file.
+
+Phases 10 and 11 write under build/smoke.
 
 The K1 launches of the CLI runs are checked exactly: one (two key
 words) for 2^28 alnum, two (three key words, then the pair table) for
@@ -66,7 +84,8 @@ Any failed phase raises and the script exits nonzero. The line before
 the last is a JSON summary of the kernels, each row's ``launches`` read
 from the words run of phase 7 (K2 and K3 read 0 there: the sort no
 longer runs them; their ``check_launches`` are those of the one K2 +
-glue + K3 pass of phase 3 that is held against the onesweep pass), with
+glue + K3 pass of phase 3 that is held against the onesweep pass) and
+its ``harness_launches`` from the twin sweep of phase 10, with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -77,9 +96,12 @@ these functions); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import io
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -91,6 +113,12 @@ import torch
 from hpc_suffix_array_tpu_torch import (
     build_lcp_array, build_suffix_array, find_longest_repeated_substring,
     is_valid_suffix_array, native)
+from hpc_suffix_array_tpu_torch.bench import (
+    benchmark_corpora, run_benchmark, run_micro_benchmark)
+from hpc_suffix_array_tpu_torch.bench.harness import _twin_for_file
+from hpc_suffix_array_tpu_torch.bench.micro import CSV_HEADER
+from hpc_suffix_array_tpu_torch.bench.parse import parse_structured_results
+from hpc_suffix_array_tpu_torch.cli import main as cli_main
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
 from hpc_suffix_array_tpu_torch.core.bigsort import (
     build_suffix_array_big, direct_keys)
@@ -102,7 +130,8 @@ from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, as_byte_tensor, build_suffix_array_doubling)
 from hpc_suffix_array_tpu_torch.core.validate import validate_kernel
 from hpc_suffix_array_tpu_torch.datasets import (
-    generate_dna_text, generate_random_text, generate_repetitive_text,
+    device_random_text, generate_dna_text, generate_random_text,
+    generate_repetitive_text, generate_standard_datasets,
     generate_words_text)
 from hpc_suffix_array_tpu_torch.kernels import _build
 from hpc_suffix_array_tpu_torch.kernels.pack import (
@@ -112,6 +141,9 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
     place_runs, place_runs_reference, radix_pass, radix_sort_words,
     radix_sort_words_reference, run_offsets)
+from hpc_suffix_array_tpu_torch.utils.profiling import (
+    device_busy, device_trace, read_trace)
+from hpc_suffix_array_tpu_torch.viz import generate_statistics_report
 
 FULL_N = 1 << 28
 MSD_N = 1 << 30
@@ -126,10 +158,19 @@ ALU_OPS = 67e12
 # (PERF.md).
 DIRECT_PEAK_2E30 = 56.00 * 2**30
 CARD_BYTES = 80 * 2**30
-ALNUM = np.frombuffer(
-    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
-    np.uint8)
 SEED = 0
+# Where phases 10 and 11 write (corpus file, CSVs, report, traces).
+OUT_DIR = pathlib.Path("build/smoke")
+# The twin sweep of phase 10: corpus name -> the route it must take.
+TWIN_ROWS = {"random_256MB": "direct", "dna_256MB": "direct",
+             "repetitive_256MB": "direct", "words_256MB": "direct",
+             "random_1024MB": "msd"}
+# The harness's CSV columns, in the JAX package's order.
+HARNESS_COLUMNS = [
+    "file", "size_bytes", "size_mb", "backend", "platform", "processes",
+    "time_seconds", "throughput_mb_s", "throughput_chars_per_second",
+    "lrs_length", "total_time", "sa_time", "lcp_time", "lrs_time",
+    "compile_time", "builder", "success", "error", "timestamp", "input_mode"]
 # (n, bits, h0) of the kernel tests, plus an n that is not a multiple of 128.
 SMALL_CASES = [(128, 6, 5), (128 * 8, 3, 10), (128 * 9, 9, 3),
                (128 * 513, 6, 5), (1 << 17, 1, 30), (1000, 6, 5)]
@@ -204,14 +245,8 @@ def bound(n_bytes: float, ops: float) -> dict:
 
 
 def alnum_on_card(n: int, seed: int) -> np.ndarray:
-    """Random alnum bytes made on the card from a seeded generator and
-    copied to the host once."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    codes = torch.randint(0, len(ALNUM), (n,), generator=g, device="cuda",
-                          dtype=torch.uint8)
-    lut = torch.from_numpy(ALNUM.copy()).cuda()
-    return torch.cat([lut[codes[i:i + (1 << 28)].long()]
-                      for i in range(0, n, 1 << 28)]).cpu().numpy()
+    """Random alnum bytes made on the card, copied to the host once."""
+    return device_random_text(n, seed, "cuda").cpu().numpy()
 
 
 def compare_pack(text: np.ndarray, remap: np.ndarray, bits: int, h0: int,
@@ -733,6 +768,143 @@ def msd_against_direct(text: np.ndarray, card: str) -> None:
           f"{json.dumps(counts)} ({card})")
 
 
+def row_times(row: dict) -> str:
+    return (f"total {row['total_time']:.4f} s (SA {row['sa_time']:.4f}, LCP "
+            f"{row['lcp_time']:.4f}, LRS {row['lrs_time']:.4f}), first-use "
+            f"{row['compile_time']:.4f} s, {row['throughput_mb_s']:.1f} MB/s")
+
+
+def harness_on_card(card: str) -> dict:
+    """[10] the micro benchmark, the twin sweep, two validated runs and
+    one file-mode row against the CLI; returns the twin sweep's launch
+    counts."""
+    results = run_micro_benchmark(
+        out_csv=OUT_DIR / "micro_results.csv", sizes=(1_000, 10_000, 100_000),
+        reps=1, device="cuda", verbose=False)
+    with open(OUT_DIR / "micro_results.csv", newline="") as f:
+        micro = list(csv.reader(f))
+    if micro[0] != CSV_HEADER or len(micro) != 7 or any(
+            r.implementation != "cuda" or r.sa_time <= 0 for r in results):
+        raise AssertionError(f"micro benchmark: {micro}")
+    phase(f"[10] micro benchmark, 6 rows on cuda: total s "
+          f"{[round(r.total_time, 5) for r in results]} ({card})")
+
+    reset_launches()
+    rows = benchmark_corpora(
+        list(TWIN_ROWS), results_dir=OUT_DIR, device="cuda", verbose=False,
+        seq_csv_name="sequential_results_twin.csv", twin=True)
+    counts = launches()
+    check_launches(counts, "twin sweep")
+    for row, (name, path) in zip(rows, TWIN_ROWS.items()):
+        want = {"file": name, "success": True, "platform": "cuda",
+                "backend": "cuda_twin", "input_mode": "twin_device",
+                "builder": path}
+        got = {k: row.get(k) for k in want}
+        if got != want or row["sa_time"] <= 0 or row["lrs_length"] <= 0:
+            raise AssertionError(f"twin row {name}: {row}")
+        phase(f"[10] twin {name}: builder {row['builder']}, LRS "
+              f"{row['lrs_length']}, {row_times(row)} ({card})")
+    twin_csv = OUT_DIR / "sequential_results_twin.csv"
+    with open(twin_csv, newline="") as f:
+        reader = csv.DictReader(f)
+        read_back = list(reader)
+        if reader.fieldnames != HARNESS_COLUMNS:
+            raise AssertionError(f"CSV columns {reader.fieldnames}")
+    if [r["file"] for r in read_back] != list(TWIN_ROWS):
+        raise AssertionError(f"CSV rows {read_back}")
+    report = generate_statistics_report(
+        twin_csv, OUT_DIR / "performance_statistics.txt")
+    if "fitted exponent" not in report.read_text():
+        raise AssertionError("statistics report:\n" + report.read_text())
+    phase(f"[10] twin sweep: 5 rows, CSV read back with the harness's 20 "
+          f"columns, {report} written; launches {json.dumps(counts)}")
+
+    # benchmark_corpora has no validation switch: validate two rows here.
+    for name in ("words_256MB", "random_1024MB"):
+        text, text_dev = _twin_for_file(name, "cuda")
+        r = run_benchmark(text, device="cuda", validate=True, warmup=False,
+                          text_dev=text_dev)
+        if r.valid is not True or r.builder != TWIN_ROWS[name]:
+            raise AssertionError(f"validated run {name}: {r}")
+        phase(f"[10] run_benchmark {name}, validate=True: valid True, "
+              f"builder {r.builder}, total {r.total_time:.4f} s ({card})")
+        del text, text_dev
+        torch.cuda.empty_cache()
+
+    (path,) = generate_standard_datasets(
+        OUT_DIR / "data", random_mb=(50,), repetitive_mb=(), dna_mb=())
+    (row,) = benchmark_corpora([path], results_dir=OUT_DIR, device="cuda",
+                               verbose=False)
+    if not row["success"] or (row["input_mode"], row["backend"]) != (
+            "file", "cuda"):
+        raise AssertionError(f"file row: {row}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(path)])
+    rec = parse_structured_results(buf.getvalue())
+    if rc != 0 or row["size_bytes"] != 50 << 20 or (
+            rec.get("file_size"), rec.get("path")) != (
+            row["size_bytes"], row["builder"]):
+        raise AssertionError(f"file row {row} vs CLI {rec} (exit {rc})")
+    phase(f"[10] file {path.name}: harness row builder {row['builder']}, "
+          f"{row_times(row)}; cli.main parses to FILE_SIZE "
+          f"{rec['file_size']}, PATH {rec['path']}, SA_TIME "
+          f"{rec['sa_time']:.4f} s, TOTAL_TIME {rec['total_time']:.4f} s "
+          f"({card})")
+    return counts
+
+
+def traced_build(name: str, want_path: str, card: str) -> None:
+    """[11] one warm build_sa_lcp on the twin corpus ``name`` inside
+    device_trace: the trace must hold the main-path kernels by name."""
+    text, text_dev = _twin_for_file(name, "cuda")
+    # The warm-up's blocks stay in the caching allocator, so the traced
+    # build's window holds no cudaMalloc.
+    build_sa_lcp(text, device="cuda", text_dev=text_dev)
+    trace_dir = OUT_DIR / f"trace_{name}"
+    info: dict = {}
+    with device_trace(trace_dir, "cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build_sa_lcp(text, device="cuda", info=info, text_dev=text_dev)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    del out
+    if info["path"] != want_path:
+        raise AssertionError(f"traced {name} took {info['path']}")
+    events = read_trace(trace_dir)
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    for needle in ("onesweep_pass", "pack_words", "digit_histograms"):
+        if not any(needle in k for k in kernels):
+            raise AssertionError(f"trace of {name} holds no {needle} "
+                                 f"kernel: {sorted(kernels)[:40]}")
+    busy = device_busy(events)
+    size = (trace_dir / "trace.json").stat().st_size
+    phase(f"[11] trace {name} ({info['path']}): build under the profiler "
+          f"{traced_s:.3f} s; {busy['n_events']} device events, window "
+          f"{busy['window_ms']:.1f} ms, busy {busy['busy_ms']:.1f} ms, idle "
+          f"share {busy['idle_share']:.3f}; trace {size / 2**20:.1f} MiB "
+          f"({card})")
+    phase(f"[11] trace {name} top device operations: "
+          f"{json.dumps(busy['top'])}")
+    phase(f"[11] trace {name} longest idle gaps: {json.dumps(busy['gaps'])}")
+    del text, text_dev
+    torch.cuda.empty_cache()
+
+
+def cli_trace(path) -> None:
+    """[11] the CLI's --trace on a file."""
+    trace_dir = OUT_DIR / "trace_cli"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(path), "--trace", str(trace_dir)])
+    if rc != 0 or f"device trace written to {trace_dir}" not in (
+            buf.getvalue()) or not (trace_dir / "trace.json").exists():
+        raise AssertionError(f"cli --trace (exit {rc}):\n" + buf.getvalue())
+    phase(f"[11] cli.main {path} --trace: device trace written to "
+          f"{trace_dir}")
+
+
 def main() -> int:
     # 1) device
     if not torch.cuda.is_available():
@@ -941,6 +1113,13 @@ def main() -> int:
           f"peak {peak / 2**30:.2f} GiB; launches {json.dumps(counts)} "
           f"({card})")
 
+    # 10) the measurement path; 11) the device trace
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    harness_counts = harness_on_card(card)
+    traced_build("random_1024MB", "msd", card)
+    traced_build("words_256MB", "direct", card)
+    cli_trace(OUT_DIR / "data" / "random_50MB.txt")
+
     n = FULL_N
     tiles = n // 4096
     print(json.dumps({"kernels": [
@@ -948,6 +1127,8 @@ def main() -> int:
          "source": "hpc_suffix_array_tpu_torch/csrc/pack.cu",
          "replaces": "hpc_suffix_array_tpu/kernels/pack.py:51",
          "launches": words_counts["pack_ranks"] + words_counts["pack_words"],
+         "harness_launches": (harness_counts["pack_ranks"]
+                              + harness_counts["pack_words"]),
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
          "ms": k1["word1"]["ms"], "plain_ms": k1["word1"]["plain_ms"],
          **k1_bound(k1["word1"]),
@@ -958,6 +1139,7 @@ def main() -> int:
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["digit_histograms"],
+         "harness_launches": harness_counts["digit_histograms"],
          "max_abs_err": max(os_err["hist"], srt["hist_err"]),
          "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"],
          **bound(2 * 4 * n + 8 * 256 * 4, 4 * 8 * n)},
@@ -965,6 +1147,7 @@ def main() -> int:
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["onesweep_pass"],
+         "harness_launches": harness_counts["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
          "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
          **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
@@ -972,6 +1155,7 @@ def main() -> int:
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["block_digit_sort"],
+         "harness_launches": harness_counts["block_digit_sort"],
          "check_launches": one[3]["k23_launches"]["block_digit_sort"],
          "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
@@ -980,6 +1164,7 @@ def main() -> int:
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["place_runs"],
+         "harness_launches": harness_counts["place_runs"],
          "check_launches": one[3]["k23_launches"]["place_runs"],
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],

@@ -18,7 +18,8 @@ Counterpart of the single-device flow of ``hpc_suffix_array_tpu/cli.py``:
 
 ``--device`` defaults to ``cuda`` and raises when CUDA is unavailable;
 ``--device cpu`` runs the same path on the CPU. IMPLEMENTATION reads
-``cuda`` on the card and ``torch_cpu`` on the CPU.
+``cuda`` on the card and ``torch_cpu`` on the CPU. ``--trace DIR`` wraps
+the run in ``utils.profiling.device_trace`` and writes ``DIR/trace.json``.
 
 Run as ``python -m hpc_suffix_array_tpu_torch.cli <file-or-string>``.
 """
@@ -26,13 +27,14 @@ Run as ``python -m hpc_suffix_array_tpu_torch.cli <file-or-string>``.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
 import numpy as np
 
 from hpc_suffix_array_tpu_torch.device import resolve_device, synchronize
+from hpc_suffix_array_tpu_torch.utils.io import (
+    print_first_chars, print_last_chars, read_file)
 
 
 def looks_like_file(arg: str) -> bool:
@@ -42,17 +44,6 @@ def looks_like_file(arg: str) -> bool:
 
 def implementation_name(device) -> str:
     return "cuda" if resolve_device(device).type == "cuda" else "torch_cpu"
-
-
-def read_file(path: str) -> np.ndarray:
-    """A file as a uint8[n] read-only memory map (empty file: zeros(0))."""
-    if os.path.getsize(path) == 0:
-        return np.zeros((0,), np.uint8)
-    return np.memmap(path, dtype=np.uint8, mode="r")
-
-
-def _preview(data) -> str:
-    return bytes(np.asarray(data, np.uint8)).decode("utf-8", errors="replace")
 
 
 def run(text: np.ndarray, filename: str, device, validate: bool,
@@ -209,6 +200,9 @@ def main(argv=None) -> int:
                    help="force the argument to be a literal string")
     p.add_argument("--file", dest="force_file", action="store_true",
                    help="force the argument to be a file path")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "DIR/trace.json")
     args = p.parse_args(argv)
     # Outside the FAILED handler: a missing device is a usage error, not
     # a build failure, and must never turn into a CPU run.
@@ -228,10 +222,11 @@ def main(argv=None) -> int:
         print(f"File read successfully: {args.input}")
         print(f"Actual string length: {n}")
         if n < 100:
-            print(f'Full content: "{_preview(text)}"')
+            content = bytes(text).decode("utf-8", errors="replace")
+            print(f'Full content: "{content}"')
         else:
-            print(f"First 50 characters: {_preview(text[:50])}")
-            print(f"Last 50 characters: {_preview(text[-50:])}")
+            print_first_chars(text, 50)
+            print_last_chars(text, 50)
         print()
     else:
         text = np.frombuffer(args.input.encode("utf-8"), np.uint8)
@@ -240,8 +235,16 @@ def main(argv=None) -> int:
         print(f"String length: {len(text)}")
 
     try:
-        run(text, filename, device, validate=not args.no_validate,
-            dialect=args.dialect)
+        if args.trace:
+            from hpc_suffix_array_tpu_torch.utils.profiling import (
+                device_trace)
+            with device_trace(args.trace, device):
+                run(text, filename, device, validate=not args.no_validate,
+                    dialect=args.dialect)
+            print(f"device trace written to {args.trace}")
+        else:
+            run(text, filename, device, validate=not args.no_validate,
+                dialect=args.dialect)
     except KeyboardInterrupt:
         raise
     except Exception as e:

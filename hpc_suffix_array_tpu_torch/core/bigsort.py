@@ -63,9 +63,16 @@ in-place writes, no cheap scans) and are not ported: an exact count is
 one K1 launch and a ``bincount`` per chunk here, and the onesweep pass
 writes every run to its exact place.
 
+``replan_edges`` refreshes a plan's edges between builds: k0-only plans
+are re-sampled on the device (``_sample_k0_device``, a strided view of
+the text), pair-edge plans on the host.
+
 Not ported here: ``codes_from_bytes``/``byte_ranges`` (workarounds for
 XLA's per-element gather cost; the pack kernel reads the remap from
-shared memory) and ``bucket_size`` padding (no ``PAD_KEY`` rows exist).
+shared memory, so the re-plan's device sampler needs no range-mappable
+alphabet), the sampled fill fractions (``fill_frac``, which sized the
+count-free layout) and ``bucket_size`` padding (no ``PAD_KEY`` rows
+exist).
 """
 
 from __future__ import annotations
@@ -123,6 +130,10 @@ def packing_mode(remap: np.ndarray) -> tuple[int, int, bool]:
     return packing_from_sigma(int(remap.max()))
 
 
+# The host-only planning steps carry a profiler span: numpy work shows in
+# no trace by itself, and these are the device's longest idle gaps
+# (PERF.md). Outside a profiler a span costs about a microsecond.
+@torch.profiler.record_function("host: estimate_repeat_len")
 def estimate_repeat_len(arr: np.ndarray, sample: int = 1 << 16,
                         probe_depth: int = 4096, seed: int = 0x11
                         ) -> int:
@@ -765,6 +776,7 @@ def _pack_sampled(text: torch.Tensor, remap, pos, spw: int, bits: int,
     return out.cpu().numpy()
 
 
+@torch.profiler.record_function("host: sample_edges")
 def sample_edges(arr: np.ndarray, remap, spw: int, bits: int,
                  target_bucket: int, sample: int = 1 << 21,
                  seed: int = 0x5A, k0_only: bool | None = None,
@@ -824,6 +836,65 @@ def sample_edges(arr: np.ndarray, remap, spw: int, bits: int,
         return out + (np.diff(np.r_[0, cuts, len(code)]) / max(len(code),
                                                                1),)
     return out
+
+
+def _sample_k0_device(n_edges: int, m_s: int, stride: int, spw: int,
+                      bits: int, text: torch.Tensor, table: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """k0-only quantile edges, entirely on the text's device (strided
+    sample): int32[n_edges], the JAX package's ``_sample_k0_device``.
+
+    The text's first ``m_s * stride`` bytes are viewed as (m_s, stride)
+    rows (a view, no gather); the first ``spw`` bytes of each row fold
+    into a k0 word as the pack kernel folds them (``table`` is
+    ``key_table``'s, 0 past n); the sample is sorted and the quantiles
+    read. Rows that start past ``n - spw`` take the sentinel ``2 << 29``,
+    above every 30-bit word, and sort past the valid prefix that the
+    quantile slots index. Duplicate quantile values are kept (they make
+    empty buckets, which the bucket pass skips), so the plan keeps its
+    bucket count. Strided sampling is unbiased on non-periodic texts;
+    periodic texts run in chain mode, where the edges only balance."""
+    dev = text.device
+    need = m_s * stride
+    if text.shape[0] < need:            # n < stride: one row, zero-filled
+        text = torch.cat([text, text.new_zeros(need - text.shape[0])])
+    blk = text[:need].reshape(m_s, stride)[:, :spw]
+    pos = torch.arange(m_s, dtype=torch.int64, device=dev) * stride
+    inside = pos[:, None] + torch.arange(spw, device=dev) < n
+    codes = torch.where(inside, table[blk.long()], 0)
+    k0 = torch.zeros(m_s, dtype=torch.int32, device=dev)
+    for s in range(spw):
+        k0 = (k0 << bits) | codes[:, s]
+    last = max(n - spw, 1)
+    k0 = torch.where(pos < last, k0, 2 << 29)
+    k0 = torch.sort(k0).values
+    n_valid = min(max(-(-last // stride), 1), m_s)
+    q = (torch.arange(1, n_edges + 1, dtype=torch.int64, device=dev)
+         * n_valid) // (n_edges + 1)
+    return k0[q]
+
+
+def replan_edges(state: dict, text=None) -> None:
+    """Refresh the plan's bucket edges in place (a benchmark's re-plan
+    step between timed builds).
+
+    A plan with k0-only edges is re-sampled on the device, with a stride
+    of ``n / 2^21`` (at least two words) and at most 2^21 rows; a plan
+    with (k0, k1) pair edges goes back through ``sample_edges`` on
+    ``text`` (default: the state's host bytes)."""
+    plan: BigPlan = state["plan"]
+    if not plan.e1.any():
+        stride = max(2 * plan.spw, plan.n // (1 << 21) or 1)
+        m_s = min(1 << 21, plan.n // stride or 1)
+        e0 = _sample_k0_device(len(plan.e0), m_s, stride, plan.spw,
+                               plan.bits, state["text_dev"], state["table"],
+                               plan.n)
+        plan.e0 = e0.cpu().numpy()
+        return
+    plan.e0, plan.e1 = sample_edges(
+        as_byte_array(text if text is not None else state["host_text"]),
+        plan.remap, plan.spw, plan.bits, plan.meta["target_bucket"],
+        minpad=plan.minpad, text_dev=state["text_dev"])
 
 
 def chunk_geometry(n: int, chunk_elems: int | None = None

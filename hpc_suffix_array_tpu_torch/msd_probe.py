@@ -1,5 +1,6 @@
-"""Measurements of the MSD bucket builder, and of the validator the CLI
-runs after it, on one CUDA card.
+"""Measurements of the MSD bucket builder, of the validator the CLI
+runs after it, and sweeps and traces of whole builds through the bench
+harness, on one CUDA card.
 
     python hpc_suffix_array_tpu_torch/msd_probe.py MODE [MODE ...]
 
@@ -16,8 +17,9 @@ Modes:
   geometry  MSD ``build_sa_lcp`` at 2^30 random alnum for chunk widths
             2^24-2^27 and target buckets 2^23-2^28 (two runs each),
             with the phase times, bucket count and peak memory;
-  words30   ``cli.run`` on 2^30 bytes of words, validated: path,
-            refinement members, times, peak;
+  words30   ``cli.run`` on 2^30 bytes of words, validated, twice (the
+            first run pays the first-use allocations): path, refinement
+            members, times, peak;
   n31       ``build_sa_lcp`` at 2^31 - 1 random alnum: path, times,
             peak, and 2^16 sampled adjacent SA pairs checked on the host;
   route     warm ``build_sa_lcp`` at 2^30 random alnum on whatever
@@ -33,14 +35,37 @@ Modes:
             timed five times in alternating order (host clock, synced),
             with the peak above what was allocated before the call.
 
+  sweep     through ``bench.harness``: twin rows (warm-up, then one timed
+            run) of DNA, repetitive p1000 and words at 1,024 MB, each
+            followed by a validated run; then ten timed ``run_benchmark``
+            repeats after one warm-up at 256 MB and 1,024 MB random
+            alnum, with the median, quartiles and range of the total
+            and SA times. CSVs go to ``OUT/sweep``;
+  small     ``run_benchmark`` at 2^22 and 2^23 bytes (random alnum, DNA,
+            words) under four settings of the route thresholds: the
+            defaults, the carried-keys SA from 0 bytes
+            (``SA_BIG_THRESHOLD=0``) with PLCP, the fused SA+LCP build
+            from 0 bytes (``SA_LCP_BIG_MIN=0`` too), and doubling + PLCP
+            forced; one warm-up and three timed runs each;
+  trace     ``utils.profiling.device_trace`` around one warm
+            ``build_sa_lcp`` at 2^30 random alnum (MSD) and at 2^28
+            words (direct, refinement): device busy and idle share of
+            the window, the ten device operations with the most time and
+            the ten longest idle gaps with the device operations around
+            them and the host's events inside them. Each trace is
+            written under ``OUT/trace``, read and removed.
+
 Texts are made on the card from a seeded ``torch.Generator`` (words on
-the host, in batches) and copied to the host once.
+the host, in batches) and copied to the host once
+(``datasets/generate.py``). ``OUT`` is the directory named by the
+environment variable ``SA_PROBE_OUT`` (default ``build/probe``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -48,9 +73,10 @@ import time
 import numpy as np
 import torch
 
-ALNUM = np.frombuffer(
-    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
-    np.uint8)
+from hpc_suffix_array_tpu_torch.datasets.generate import (
+    device_random_text, generate_words_text_batched)
+
+OUT = os.environ.get("SA_PROBE_OUT", "build/probe")
 
 
 def card() -> str:
@@ -66,45 +92,7 @@ def say(mode: str, msg: str) -> None:
 
 def alnum_text(n: int, seed: int = 0) -> np.ndarray:
     """Random alnum bytes made on the card, copied to the host once."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    codes = torch.randint(0, len(ALNUM), (n,), generator=g, device="cuda",
-                          dtype=torch.uint8)
-    lut = torch.from_numpy(ALNUM.copy()).cuda()
-    return torch.cat([lut[codes[i:i + (1 << 28)].long()]
-                      for i in range(0, n, 1 << 28)]).cpu().numpy()
-
-
-def words_text(n: int, seed: int = 0, batch: int = 1 << 24) -> np.ndarray:
-    """The words corpus's distribution (``datasets.generate_words_text``:
-    the same vocabulary for the seed), drawn in batches of ``batch``
-    words so the host holds a few GiB at 2^30."""
-    rng = np.random.default_rng(seed)
-    octaves = 14
-    vocab_size = 1 << octaves
-    lens = rng.integers(2, 10, vocab_size)
-    tab = np.zeros((vocab_size, 10), np.uint8)
-    for L in range(2, 10):
-        rows = np.flatnonzero(lens == L)
-        tab[rows[:, None], np.arange(L)[None, :]] = ALNUM[
-            rng.integers(0, len(ALNUM), (len(rows), L))]
-        tab[rows, L] = ord(" ")
-    wl = (lens + 1).astype(np.int64)
-    out = np.empty(n, np.uint8)
-    total = 0
-    while total < n:
-        o = rng.integers(0, octaves, batch)
-        ids = (1 << o) + (rng.integers(0, 1 << 62, batch) & ((1 << o) - 1))
-        ids = np.minimum(ids, vocab_size - 1)
-        L = wl[ids]
-        ends = np.cumsum(L)
-        starts = ends - L
-        m = int(ends[-1])
-        intra = np.arange(m, dtype=np.int64) - np.repeat(starts, L)
-        piece = tab[np.repeat(ids, L), intra]
-        take = min(m, n - total)
-        out[total:total + take] = piece[:take]
-        total += take
-    return out
+    return device_random_text(n, seed, "cuda").cpu().numpy()
 
 
 def timed_sa_lcp(text: np.ndarray, t: torch.Tensor, cross: str | None):
@@ -217,20 +205,21 @@ def mode_words30() -> None:
     from hpc_suffix_array_tpu_torch.cli import run as cli_run
 
     t0 = time.perf_counter()
-    text = words_text(1 << 30)
+    text = generate_words_text_batched(1 << 30)
     say("words30", f"words 2^30 generated on the host in "
                    f"{time.perf_counter() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    res = cli_run(text, "words_2^30", "cuda", validate=True,
-                  dialect="sequential", out=buf)
-    peak = torch.cuda.max_memory_allocated()
-    keep = {k: res.get(k) for k in (
-        "path", "valid", "sa_time", "lcp_time", "total_time", "declined",
-        "refine_members", "refine_pieces", "refine_rounds",
-        "refine_host_members", "refine_phase_s", "rerun")}
-    say("words30", f"cli.run words 2^30: {json.dumps(keep)}; peak "
-                   f"{gib(peak)}")
+    # The first run pays the first-use allocations, the second is warm.
+    for rep in ("first", "second"):
+        torch.cuda.reset_peak_memory_stats()
+        res = cli_run(text, "words_2^30", "cuda", validate=True,
+                      dialect="sequential", out=io.StringIO())
+        peak = torch.cuda.max_memory_allocated()
+        keep = {k: res.get(k) for k in (
+            "path", "valid", "sa_time", "lcp_time", "total_time", "declined",
+            "refine_members", "refine_pieces", "refine_rounds",
+            "refine_host_members", "refine_phase_s", "rerun")}
+        say("words30", f"cli.run words 2^30, {rep} run: {json.dumps(keep)}; "
+                       f"peak {gib(peak)}")
 
 
 def mode_n31() -> None:
@@ -328,9 +317,125 @@ def mode_validate() -> None:
         torch.cuda.empty_cache()
 
 
+def _spread(xs) -> str:
+    q = statistics.quantiles(xs, n=4)
+    return (f"median {statistics.median(xs):.4f}, quartiles {q[0]:.4f}-"
+            f"{q[2]:.4f}, range {min(xs):.4f}-{max(xs):.4f}")
+
+
+def mode_sweep() -> None:
+    from hpc_suffix_array_tpu_torch.bench.harness import (
+        _twin_for_file, benchmark_corpora)
+    from hpc_suffix_array_tpu_torch.bench.timing import run_benchmark
+
+    out = f"{OUT}/sweep"
+    names = ["dna_1024MB", "repetitive_1024MB", "words_1024MB"]
+    for name in names:
+        torch.cuda.reset_peak_memory_stats()
+        (row,) = benchmark_corpora(
+            [name], results_dir=out, device="cuda", verbose=False, twin=True,
+            seq_csv_name=f"sequential_results_twin_{name}.csv")
+        peak = torch.cuda.max_memory_allocated()
+        keep = {k: row.get(k) for k in (
+            "success", "error", "builder", "lrs_length", "total_time",
+            "sa_time", "lcp_time", "lrs_time", "compile_time",
+            "throughput_mb_s")}
+        say("sweep", f"twin row {name}: {json.dumps(keep)}; peak {gib(peak)}")
+        text, text_dev = _twin_for_file(name, "cuda")
+        try:
+            r = run_benchmark(text, device="cuda", validate=True,
+                              warmup=False, text_dev=text_dev)
+            say("sweep", f"validated run {name}: valid {r.valid}, builder "
+                         f"{r.builder}, total {r.total_time:.4f} s, SA "
+                         f"{r.sa_time:.4f} s")
+        except Exception as e:      # recorded: a fault of the port
+            say("sweep", f"validated run {name}: FAILED "
+                         f"{type(e).__name__}: {str(e)[:300]}")
+        del text, text_dev
+        torch.cuda.empty_cache()
+    for name in ("random_256MB", "random_1024MB"):
+        text, text_dev = _twin_for_file(name, "cuda")
+        first = run_benchmark(text, device="cuda", text_dev=text_dev)
+        runs = [first] + [run_benchmark(text, device="cuda", warmup=False,
+                                        text_dev=text_dev) for _ in range(9)]
+        say("sweep", f"{name} x10 after one warm-up (first-use "
+                     f"{first.compile_time:.4f} s), builder {first.builder}: "
+                     f"total s {[round(r.total_time, 4) for r in runs]}: "
+                     f"{_spread([r.total_time for r in runs])}; SA s "
+                     f"{_spread([r.sa_time for r in runs])}; LRS s "
+                     f"{_spread([r.lrs_time for r in runs])}")
+        del text, text_dev
+        torch.cuda.empty_cache()
+
+
+def mode_small() -> None:
+    from hpc_suffix_array_tpu_torch.bench.timing import run_benchmark
+    from hpc_suffix_array_tpu_torch.datasets import (
+        generate_dna_text, generate_random_text, generate_words_text)
+
+    never = str(1 << 62)
+    settings = {
+        "defaults": {},
+        "carried SA + PLCP": {"SA_BIG_THRESHOLD": "0"},
+        "fused SA+LCP": {"SA_BIG_THRESHOLD": "0", "SA_LCP_BIG_MIN": "0"},
+        "doubling + PLCP": {"SA_BIG_THRESHOLD": never,
+                            "SA_LCP_BIG_MIN": never},
+    }
+    for k in (22, 23):
+        for fam, gen in (("alnum", generate_random_text),
+                         ("DNA", generate_dna_text),
+                         ("words", generate_words_text)):
+            text = gen(1 << k, 0)
+            text_dev = torch.from_numpy(text).cuda()
+            for label, env in settings.items():
+                for key in ("SA_BIG_THRESHOLD", "SA_LCP_BIG_MIN"):
+                    os.environ.pop(key, None)
+                os.environ.update(env)
+                runs = [run_benchmark(text, device="cuda", warmup=(i == 0),
+                                      text_dev=text_dev) for i in range(3)]
+                say("small", f"n=2^{k} {fam}, {label}: builder "
+                             f"{runs[0].builder}; ms total/SA/LCP "
+                             f"{[(round(r.total_time * 1e3, 2), round(r.sa_time * 1e3, 2), round(r.lcp_time * 1e3, 2)) for r in runs]}")
+            for key in ("SA_BIG_THRESHOLD", "SA_LCP_BIG_MIN"):
+                os.environ.pop(key, None)
+
+
+def mode_trace() -> None:
+    from hpc_suffix_array_tpu_torch.bench.harness import _twin_for_file
+    from hpc_suffix_array_tpu_torch.utils.profiling import (
+        device_busy, device_trace, read_trace)
+
+    for name in ("random_1024MB", "words_256MB"):
+        text, t = _twin_for_file(name, "cuda")
+        warm, _, sa, lcp = timed_sa_lcp(text, t, None)
+        del sa, lcp
+        plain, info, sa, lcp = timed_sa_lcp(text, t, None)
+        del sa, lcp
+        out = f"{OUT}/trace/{name}"
+        with device_trace(out, "cuda"):
+            traced, info, sa, lcp = timed_sa_lcp(text, t, None)
+        del sa, lcp
+        busy = device_busy(read_trace(out), n_top=10, n_gaps=10)
+        say("trace", f"{name} build_sa_lcp path {info['path']}: first run "
+                     f"{warm:.4f} s, warm {plain:.4f} s, under the profiler "
+                     f"{traced:.4f} s; {busy['n_events']} device events, "
+                     f"window {busy['window_ms']:.2f} ms, busy "
+                     f"{busy['busy_ms']:.2f} ms, idle share "
+                     f"{busy['idle_share']:.4f}; host phases s "
+                     f"{json.dumps(info.get('phase_host_s'))}")
+        say("trace", f"{name} top device operations: "
+                     f"{json.dumps(busy['top'])}")
+        for g in busy["gaps"]:
+            say("trace", f"{name} idle gap {json.dumps(g)}")
+        os.remove(f"{out}/trace.json")      # tens of MiB, already read
+        del t
+        torch.cuda.empty_cache()
+
+
 MODES = {"check": mode_check, "cross": mode_cross, "geometry": mode_geometry,
          "words30": mode_words30, "n31": mode_n31, "route": mode_route,
-         "validate": mode_validate, "warm": mode_warm}
+         "validate": mode_validate, "warm": mode_warm, "sweep": mode_sweep,
+         "small": mode_small, "trace": mode_trace}
 
 
 if __name__ == "__main__":

@@ -71,9 +71,24 @@ Drives the port's main paths on the card and checks them:
      trace must hold the onesweep pass and the K1 kernel by name; the
      ten device operations with the most time, the device's idle share
      of the window and its longest idle gaps are printed; then the
-     CLI's main() with --trace on a small file.
+     CLI's main() with --trace on a small file;
+ 12. the sharded backend (parallel/), every shard on the one card: (a)
+     build_suffix_array_sharded, build_lcp_array_sharded and
+     is_valid_suffix_array_sharded on the four corpora of phase 4 at
+     2^24 with P = 1, 2, 4 and 8 shards, against the SA-IS and Kasai
+     arrays of phase 4, the validator rejecting a swapped pair and a
+     duplicated entry, K1 launched exactly P times per build, the
+     onesweep sort launched and K2/K3 not; (b) the CLI's run() with
+     backend "sharded" on 4 shards at 2^28 on phase 5's random alnum
+     (made by the seeded host generator, so the arrays of phase 5 are
+     the reference), validated, on PATH:sharded_doubling, byte for byte
+     equal to phase 5's single-device SA and LCP, with its peak and
+     launches, then the distributed PLCP alone on its SA, timed; (c)
+     bench/mesh_sweep.py at 16 MB random on one device and on 2, 4 and 8
+     shards: every row a success on platform cuda, parallel_results.csv
+     with the harness's columns. The phase's wall time is printed.
 
-Phases 10 and 11 write under build/smoke.
+Phases 10, 11 and 12 write under build/smoke.
 
 The K1 launches of the CLI runs are checked exactly: one (two key
 words) for 2^28 alnum, two (three key words, then the pair table) for
@@ -85,7 +100,8 @@ the last is a JSON summary of the kernels, each row's ``launches`` read
 from the words run of phase 7 (K2 and K3 read 0 there: the sort no
 longer runs them; their ``check_launches`` are those of the one K2 +
 glue + K3 pass of phase 3 that is held against the onesweep pass) and
-its ``harness_launches`` from the twin sweep of phase 10, with
+its ``harness_launches`` from the twin sweep of phase 10 and its
+``sharded_launches`` from the sharded CLI run of phase 12, with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -117,6 +133,7 @@ from hpc_suffix_array_tpu_torch.bench import (
     benchmark_corpora, run_benchmark, run_micro_benchmark)
 from hpc_suffix_array_tpu_torch.bench.harness import _twin_for_file
 from hpc_suffix_array_tpu_torch.bench.micro import CSV_HEADER
+from hpc_suffix_array_tpu_torch.bench import mesh_sweep
 from hpc_suffix_array_tpu_torch.bench.parse import parse_structured_results
 from hpc_suffix_array_tpu_torch.cli import main as cli_main
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
@@ -141,6 +158,9 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
     place_runs, place_runs_reference, radix_pass, radix_sort_words,
     radix_sort_words_reference, run_offsets)
+from hpc_suffix_array_tpu_torch.parallel import (
+    build_lcp_array_sharded, build_suffix_array_sharded,
+    is_valid_suffix_array_sharded, make_mesh)
 from hpc_suffix_array_tpu_torch.utils.profiling import (
     device_busy, device_trace, read_trace)
 from hpc_suffix_array_tpu_torch.viz import generate_statistics_report
@@ -180,6 +200,12 @@ WORD_CASES = [(6, 5), (2, 15), (1, 30), (8, 3)]
 WORD_SIZES = [1000, 128 * 513, 4096 * 3 + 5]
 REFINE_KEYS = ("refine_members", "refine_pieces", "refine_rounds",
                "refine_host_members", "refine_phase_s")
+# Phase 12, the sharded backend: the meshes (all on the one card) at
+# 2^24, the full-size CLI run's mesh, and the mesh sweep's corpus size.
+SHARDS = (1, 2, 4, 8)
+SHARDED_N = 1 << 24
+SHARDED_P = 4
+SWEEP_MB = 16
 CORPORA = (("random alnum", generate_random_text),
            ("DNA", generate_dna_text),
            ("repetitive p1000", generate_repetitive_text),
@@ -905,6 +931,148 @@ def cli_trace(path) -> None:
           f"{trace_dir}")
 
 
+def sharded_counts() -> dict:
+    return {**launches(), **passes()}
+
+
+def check_sharded_launches(counts: dict, n_shards: int, name: str) -> None:
+    """A sharded build launches K1 once per shard, runs the onesweep
+    sort, and never launches K2 or K3."""
+    if (counts["pack_ranks"], counts["pack_words"]) != (n_shards, 0):
+        raise AssertionError(f"{name}: K1 launched {counts['pack_ranks']} "
+                             f"+ {counts['pack_words']} times, not "
+                             f"{n_shards}")
+    if counts["digit_histograms"] < 1 or counts["onesweep_pass"] < 1:
+        raise AssertionError(f"{name}: the onesweep sort did not run: "
+                             f"{counts}")
+    if counts["block_digit_sort"] or counts["place_runs"]:
+        raise AssertionError(f"{name}: launched K2/K3: {counts}")
+
+
+def sharded_corpus(name: str, text: np.ndarray, want_sa: np.ndarray,
+                   want_lcp: np.ndarray, n_shards: int, card: str) -> dict:
+    """[12a] the sharded SA, LCP and validator on ``n_shards`` shards of
+    the one card, against SA-IS and Kasai; the validator must reject a
+    swapped pair and a duplicated entry."""
+    mesh = make_mesh(n_shards, devices=["cuda:0"])
+    text_dev = as_byte_tensor(text, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    info: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa = build_suffix_array_sharded(text_dev, mesh, info=info)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = sharded_counts()
+    check_sharded_launches(counts, n_shards, f"{name} P={n_shards}")
+    lcp = build_lcp_array_sharded(text_dev, sa, mesh, info=info)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    valid = is_valid_suffix_array_sharded(text_dev, sa, mesh)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(sa.cpu().numpy(), want_sa):
+        raise AssertionError(f"{name} P={n_shards}: SA differs from SA-IS")
+    if not np.array_equal(lcp.cpu().numpy(), want_lcp):
+        raise AssertionError(f"{name} P={n_shards}: LCP differs from Kasai")
+    if not valid:
+        raise AssertionError(f"{name} P={n_shards}: validator rejected the "
+                             "true SA")
+    swapped, dup = sa.clone(), sa.clone()
+    swapped[[10, 11]] = swapped[[11, 10]]
+    dup[5] = dup[6]
+    for bad, what in ((swapped, "a swapped pair"), (dup, "a duplicate")):
+        if is_valid_suffix_array_sharded(text_dev, bad, mesh):
+            raise AssertionError(f"{name} P={n_shards}: validator accepted "
+                                 f"{what}")
+    out = {"P": n_shards, "path": info["path"], "rounds": info["rounds"],
+           "plcp_rounds": info["plcp_rounds"], "sa_s": t1 - t0,
+           "lcp_s": t2 - t1, "validate_s": t3 - t2,
+           "peak_gib": peak / 2**30, "launches": counts}
+    phase(f"[12a] {name} n=2^24 P={n_shards}: SA == SA-IS, LCP == Kasai, "
+          f"validator YES/NO/NO ok; {json.dumps(out)} ({card})")
+    return out
+
+
+def sharded_cli(text: np.ndarray, ref: dict, card: str) -> dict:
+    """[12b] cli.run with the sharded backend on SHARDED_P shards of the
+    one card at 2^28, validated, byte for byte against the single-device
+    run of phase 5; then the distributed PLCP alone on its SA, timed.
+    Returns the launch counts of the CLI run."""
+    mesh = make_mesh(SHARDED_P, devices=["cuda:0"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    arrays: dict = {}
+    reset_launches()
+    res = cli_run(text, "random_alnum_2^28", "cuda", validate=True,
+                  dialect="both", out=buf, arrays=arrays, backend="sharded",
+                  mesh=mesh)
+    counts = sharded_counts()
+    peak = torch.cuda.max_memory_allocated()
+    report = buf.getvalue()
+    for needle in ("Valid suffix array: YES", "PATH:sharded_doubling\n",
+                   f"mesh: {SHARDED_P} shards on 1 card(s)",
+                   f"PROCESSES:{SHARDED_P}\n", f"MPI_PROCESSES:{SHARDED_P}\n",
+                   "IMPLEMENTATION:cuda_sharded\n"):
+        if needle not in report:
+            raise AssertionError(f"sharded cli.run lacks {needle!r}:\n"
+                                 + report)
+    check_sharded_launches(counts, SHARDED_P, "sharded cli.run 2^28")
+    if not (torch.equal(arrays["sa"].cpu(), ref["sa"])
+            and torch.equal(arrays["lcp"].cpu(), ref["lcp"])):
+        raise AssertionError("sharded cli.run 2^28: SA or LCP differs from "
+                             "the single-device run")
+    text_dev = as_byte_tensor(text, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_lcp_array_sharded(text_dev, arrays["sa"], mesh)
+    torch.cuda.synchronize()
+    plcp_s = time.perf_counter() - t0
+    phase(f"[12b] cli.run n=2^28 random alnum, --backend sharded, "
+          f"{SHARDED_P} shards on one card: Valid suffix array: YES; "
+          f"PATH:{res['path']}; SA and LCP == the single-device run's, "
+          f"byte for byte; rounds={res['rounds']} plcp_rounds="
+          f"{res['plcp_rounds']}; SA_TIME {res['sa_time']:.3f} s (sharded "
+          f"doubling + distributed PLCP), LCP_TIME {res['lcp_time']:.3f} s "
+          f"(LRS), TOTAL_TIME {res['total_time']:.3f} s; distributed PLCP "
+          f"alone {plcp_s:.3f} s; peak {peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps(counts)} ({card})")
+    return counts
+
+
+def sharded_sweep(card: str) -> None:
+    """[12c] bench/mesh_sweep at SWEEP_MB MB random on one card and on 2,
+    4 and 8 shards of it: every row a success on platform cuda, and
+    parallel_results.csv with the harness's columns."""
+    rows = mesh_sweep.main(
+        sizes_mb=(SWEEP_MB,), out_dir=OUT_DIR / "mesh",
+        data_dir=OUT_DIR / "data", device="cuda", families=("random",),
+        charts=False, verbose=False)
+    backends = [r["backend"] for r in rows]
+    want = ["cuda"] + [f"cuda_sharded_{p}" for p in (2, 4, 8)]
+    if backends != want or any(not r["success"] or r["platform"] != "cuda"
+                               for r in rows):
+        raise AssertionError(f"mesh sweep rows: {rows}")
+    with open(OUT_DIR / "mesh" / "parallel_results.csv", newline="") as f:
+        reader = csv.DictReader(f)
+        par = list(reader)
+    extra = ["speedup", "efficiency", "baseline_builder", "builder_mismatch"]
+    if reader.fieldnames != HARNESS_COLUMNS + extra or len(par) != 3:
+        raise AssertionError(f"parallel_results.csv: {reader.fieldnames}, "
+                             f"{len(par)} rows")
+    for row in rows:
+        phase(f"[12c] mesh sweep random_{SWEEP_MB}MB {row['backend']}: "
+              f"builder {row['builder']}, {row_times(row)} ({card})")
+    phase(f"[12c] parallel_results.csv: speedup "
+          f"{[round(float(r['speedup']), 4) for r in par]}, efficiency "
+          f"{[round(float(r['efficiency']), 4) for r in par]}, "
+          f"builder_mismatch {[r['builder_mismatch'] for r in par]}")
+
+
 def main() -> int:
     # 1) device
     if not torch.cuda.is_available():
@@ -1051,6 +1219,8 @@ def main() -> int:
           f"total {res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
           f"launches {json.dumps(counts)} ({card})")
     against_doubling(alnum, arrays, "[5]", "random alnum", card)
+    # Phase 12 holds the sharded CLI run against these arrays.
+    sharded_ref = (alnum, {k: v.cpu() for k, v in arrays.items()})
     del arrays
 
     # 6) periodic text through the CLI: chain mode on the direct route
@@ -1120,6 +1290,18 @@ def main() -> int:
     traced_build("words_256MB", "direct", card)
     cli_trace(OUT_DIR / "data" / "random_50MB.txt")
 
+    # 12) the sharded backend, every shard on the one card
+    t12 = time.perf_counter()
+    for name, gen in CORPORA:
+        text = gen(SHARDED_N, SEED)
+        for p in SHARDS:
+            sharded_corpus(name, text, *oracles[name], p, card)
+    sharded_launches = sharded_cli(*sharded_ref, card)
+    del sharded_ref
+    torch.cuda.empty_cache()
+    sharded_sweep(card)
+    phase(f"[12] sharded backend: {time.perf_counter() - t12:.1f} s")
+
     n = FULL_N
     tiles = n // 4096
     print(json.dumps({"kernels": [
@@ -1129,6 +1311,8 @@ def main() -> int:
          "launches": words_counts["pack_ranks"] + words_counts["pack_words"],
          "harness_launches": (harness_counts["pack_ranks"]
                               + harness_counts["pack_words"]),
+         "sharded_launches": (sharded_launches["pack_ranks"]
+                              + sharded_launches["pack_words"]),
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
          "ms": k1["word1"]["ms"], "plain_ms": k1["word1"]["plain_ms"],
          **k1_bound(k1["word1"]),
@@ -1140,6 +1324,7 @@ def main() -> int:
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["digit_histograms"],
          "harness_launches": harness_counts["digit_histograms"],
+         "sharded_launches": sharded_launches["digit_histograms"],
          "max_abs_err": max(os_err["hist"], srt["hist_err"]),
          "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"],
          **bound(2 * 4 * n + 8 * 256 * 4, 4 * 8 * n)},
@@ -1148,6 +1333,7 @@ def main() -> int:
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["onesweep_pass"],
          "harness_launches": harness_counts["onesweep_pass"],
+         "sharded_launches": sharded_launches["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
          "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
          **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
@@ -1156,6 +1342,7 @@ def main() -> int:
          "replaces": "experiments/radix_write.py:213",
          "launches": words_counts["block_digit_sort"],
          "harness_launches": harness_counts["block_digit_sort"],
+         "sharded_launches": sharded_launches["block_digit_sort"],
          "check_launches": one[3]["k23_launches"]["block_digit_sort"],
          "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
@@ -1165,6 +1352,7 @@ def main() -> int:
          "replaces": "experiments/radix_write.py:318",
          "launches": words_counts["place_runs"],
          "harness_launches": harness_counts["place_runs"],
+         "sharded_launches": sharded_launches["place_runs"],
          "check_launches": one[3]["k23_launches"]["place_runs"],
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the suffix-array framework (single device).
+"""PyTorch/CUDA port of the suffix-array framework.
 
 The counterpart of ``hpc_suffix_array_tpu`` on an NVIDIA Hopper card:
 the prefix-doubling builder (texts up to 4 MiB, and the fallback), the
@@ -6,9 +6,11 @@ direct carried-keys SA+LCP builder (above 4 MiB), the MSD bucket
 builder (texts the direct route cannot hold), PLCP LCP array,
 longest repeated substring and the O(n) validator. Hand-written CUDA
 kernels carry the key folds (``csrc/pack.cu``) and the carried-keys
-radix sort (``csrc/onesweep.cu``). Every public function takes an explicit
-``device``; a CUDA device that is missing raises. This package imports
-neither jax nor the JAX package.
+radix sort (``csrc/onesweep.cu``). ``parallel/`` is the sharded backend:
+the same build, LCP and validator block-sharded over a mesh of P shards.
+Every public function takes an explicit ``device`` (or a mesh); a CUDA
+device that is missing raises. This package imports neither jax nor the
+JAX package.
 """
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (

@@ -10,9 +10,9 @@ The harness calls the library in-process and gets structured results
 directly; the STRUCTURED_RESULTS text protocol still exists at the CLI
 boundary for external consumers (``bench/parse.py``).
 
-The sharded sweep (integer mesh sizes, ``parallel_results.csv``) and the
-weak-scaling sweeps are not here: the port builds on one device.
-``add_speedup_efficiency`` is, because it is arithmetic on rows.
+Integer mesh sizes run the sharded backend (``parallel/``) and write
+``parallel_results.csv`` with speedup and efficiency against the same
+run's single-device rows. The weak-scaling sweeps are not here yet.
 """
 
 from __future__ import annotations
@@ -159,14 +159,22 @@ def benchmark_corpora(files, results_dir="results/benchmarks",
                       device="cuda", verbose: bool = True,
                       timeout_s: float | None = 7200,
                       seq_csv_name: str = "sequential_results.csv",
-                      twin: bool = False) -> list[dict]:
-    """Sweep corpus files on ``device``; write the CSV; return the rows.
+                      twin: bool = False, mesh_sizes=(None,)) -> list[dict]:
+    """Sweep corpus files on ``device``; write the CSVs; return the rows.
+
+    ``mesh_sizes``: None (one device) and/or integers P, each a sweep of
+    the sharded backend over ``make_mesh(P, device=device)`` (P shards,
+    shard i on card i mod the card count), with rows labelled
+    ``<platform>_sharded_P`` and ``processes`` P. Single-device rows go
+    to ``seq_csv_name``; sharded rows, with ``speedup`` and
+    ``efficiency`` against this run's single-device rows
+    (``add_speedup_efficiency``), to ``parallel_results.csv``.
 
     A file that fails or exceeds ``timeout_s`` (see ``_time_limit``)
     produces a FAILED row and the sweep continues.
 
-    ``seq_csv_name``: filename for the rows, so a twin sweep does not
-    overwrite the file sweep's CSV.
+    ``seq_csv_name``: filename for the single-device rows, so a twin
+    sweep does not overwrite the file sweep's CSV.
 
     ``twin``: corpora are made on the device instead of read from disk
     (family and size parsed from the filename; see ``_twin_for_file``).
@@ -184,8 +192,32 @@ def benchmark_corpora(files, results_dir="results/benchmarks",
     platform = dev.type
     results_dir = pathlib.Path(results_dir)
     results_dir.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for ms in mesh_sizes:
+        rows += _sweep(files, dev, platform, ms, verbose, timeout_s, twin)
+    seq = [r for r in rows if "_sharded_" not in r["backend"]]
+    par = [r for r in rows if "_sharded_" in r["backend"]]
+    if seq:
+        _write_rows(results_dir / seq_csv_name, seq)
+    if par:
+        _write_rows(results_dir / "parallel_results.csv",
+                    add_speedup_efficiency(par, seq))
+    return rows
+
+
+def _sweep(files, dev, platform: str, ms, verbose: bool, timeout_s,
+           twin: bool) -> list[dict]:
+    """The rows of one backend: one device (``ms`` None) or ``ms``
+    shards."""
+    mesh = None
     backend = implementation_name(dev)
     processes = 1
+    if ms is not None:
+        from hpc_suffix_array_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(ms, device=dev)
+        backend = f"{platform}_sharded_{ms}"
+        processes = ms
     rows = []
     for path in files:
         text = text_dev = None
@@ -216,7 +248,7 @@ def benchmark_corpora(files, results_dir="results/benchmarks",
         try:
             with _time_limit(timeout_s):
                 r = run_benchmark(text, bk, input_mode, device=dev,
-                                  text_dev=text_dev)
+                                  text_dev=text_dev, mesh=mesh)
         except _PhaseTimeout as e:
             if verbose:
                 print("TIMEOUT")
@@ -237,9 +269,6 @@ def benchmark_corpora(files, results_dir="results/benchmarks",
         row = _row_for_file(path, r, bk, processes, platform)
         row["input_mode"] = input_mode
         rows.append(row)
-
-    if rows:
-        _write_rows(results_dir / seq_csv_name, rows)
     return rows
 
 

@@ -54,7 +54,7 @@ class BenchmarkResult:
 
 
 def _pipeline(arr, dev, timings: PhaseTimings | None, text_dev=None,
-              info: dict | None = None):
+              info: dict | None = None, mesh=None):
     """One SA + LCP + LRS pipeline as ``cli.run`` runs it; phases timed
     into ``timings`` if given.
 
@@ -63,7 +63,13 @@ def _pipeline(arr, dev, timings: PhaseTimings | None, text_dev=None,
     the CLI. Above ``lcp_big_min()`` one fused carried-keys build gives
     SA and LCP together and lands in the SA phase; the LCP phase is then
     empty. Timing the two builders back to back there would charge the
-    full-text sort twice, a cost no CLI user pays."""
+    full-text sort twice, a cost no CLI user pays.
+
+    ``mesh``: build block-sharded over this ``parallel.Mesh`` instead (on
+    ``dev``, its first device): from ``SA_SHARDED_MSD_MIN`` up the fused
+    ``build_sa_lcp_sharded``, below it the sharded builder and the
+    sharded LCP, as the JAX harness times them."""
+    from hpc_suffix_array_tpu_torch import parallel
     from hpc_suffix_array_tpu_torch.core.lcp import (
         build_lcp_array, build_sa_lcp, lcp_big_min)
     from hpc_suffix_array_tpu_torch.core.lrs import (
@@ -76,19 +82,32 @@ def _pipeline(arr, dev, timings: PhaseTimings | None, text_dev=None,
             return contextlib.nullcontext()
         return phase_timer(timings, name, dev)
 
-    fused = int(arr.shape[0]) > lcp_big_min()
+    n = int(arr.shape[0])
+    if mesh is None:
+        fused = n > lcp_big_min()
+    else:
+        fused = n >= parallel.sharded_msd_min()
     lcp = None
     with phase("sa_build"):
         if text_dev is None:
             text_dev = as_byte_tensor(arr, dev)
-        if fused:
+        if mesh is not None and fused:
+            sa, lcp = parallel.build_sa_lcp_sharded(text_dev, mesh,
+                                                    info=info)
+        elif mesh is not None:
+            sa = parallel.build_suffix_array_sharded(text_dev, mesh,
+                                                     info=info)
+        elif fused:
             sa, lcp = build_sa_lcp(arr, device=dev, info=info,
                                    text_dev=text_dev)
         else:
             sa = build_suffix_array(arr, device=dev, info=info,
                                     text_dev=text_dev)
     with phase("lcp_build"):
-        if not fused:
+        if mesh is not None and not fused:
+            lcp = parallel.build_lcp_array_sharded(text_dev, sa, mesh,
+                                                   info=info)
+        elif not fused:
             lcp = build_lcp_array(arr, sa, device=dev, info=info,
                                   text_dev=text_dev)
     with phase("lrs_search"):
@@ -99,33 +118,36 @@ def _pipeline(arr, dev, timings: PhaseTimings | None, text_dev=None,
 def run_benchmark(text, implementation: str | None = None,
                   input_type: str = "random", device="cuda",
                   validate: bool = False, warmup: bool = True,
-                  text_dev=None) -> BenchmarkResult:
+                  text_dev=None, mesh=None) -> BenchmarkResult:
     """Time one full SA + LCP + LRS pipeline on ``text`` on ``device``.
 
     ``implementation`` defaults to the CLI's name for the device (``cuda``
-    / ``torch_cpu``). ``warmup=True`` runs the pipeline once untimed
-    first, ending in a device fence; the warm-up's time minus the timed
-    run's is reported as ``compile_time`` (see the module docstring).
-    ``text_dev``: pre-staged device copy (see ``_pipeline``)."""
+    / ``torch_cpu``, with ``_sharded`` for a mesh). ``warmup=True`` runs
+    the pipeline once untimed first, ending in a device fence; the
+    warm-up's time minus the timed run's is reported as ``compile_time``
+    (see the module docstring). ``text_dev``: pre-staged device copy;
+    ``mesh``: a ``parallel.Mesh`` to build sharded over, whose first
+    device takes the place of ``device`` (see ``_pipeline``)."""
     import time
 
     from hpc_suffix_array_tpu_torch.core.suffix_array import as_byte_array
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     arr = as_byte_array(text)
     n = int(arr.shape[0])
 
     if warmup:
         synchronize(dev)
         t0 = time.perf_counter()
-        _pipeline(arr, dev, None, text_dev)
+        _pipeline(arr, dev, None, text_dev, mesh=mesh)
         synchronize(dev)
         warmup_total = time.perf_counter() - t0
 
     info: dict = {}
     timings = PhaseTimings()
     with phase_timer(timings, "total", dev):
-        sa, lcp, lrs, staged = _pipeline(arr, dev, timings, text_dev, info)
+        sa, lcp, lrs, staged = _pipeline(arr, dev, timings, text_dev, info,
+                                         mesh)
 
     valid = None
     if validate:
@@ -134,7 +156,8 @@ def run_benchmark(text, implementation: str | None = None,
         valid = bool(is_valid_suffix_array(staged, sa, device=dev))
 
     return BenchmarkResult(
-        implementation=implementation or implementation_name(dev),
+        implementation=implementation or implementation_name(
+            dev, "single" if mesh is None else "sharded"),
         input_type=input_type,
         string_length=n,
         total_time=timings["total"],

@@ -1,6 +1,7 @@
 """Command-line entry point of the port: ``sa-cli-torch``.
 
-Counterpart of the single-device flow of ``hpc_suffix_array_tpu/cli.py``:
+Counterpart of ``hpc_suffix_array_tpu/cli.py`` (its single-process
+backends, ``--backend single`` and ``--backend sharded``):
 
   * one positional argument with the file-vs-string heuristic: an
     argument containing '/' or '.' is a file path, otherwise a literal
@@ -42,19 +43,31 @@ def looks_like_file(arg: str) -> bool:
     return "/" in arg or "." in arg
 
 
-def implementation_name(device) -> str:
-    return "cuda" if resolve_device(device).type == "cuda" else "torch_cpu"
+def implementation_name(device, backend: str = "single") -> str:
+    name = "cuda" if resolve_device(device).type == "cuda" else "torch_cpu"
+    return name + "_sharded" if backend == "sharded" else name
+
+
+def _sync(devices) -> None:
+    for d in devices:
+        synchronize(d)
 
 
 def run(text: np.ndarray, filename: str, device, validate: bool,
-        dialect: str, out=None, arrays: dict | None = None) -> dict:
+        dialect: str, out=None, arrays: dict | None = None,
+        backend: str = "single", n_devices: int | None = None,
+        mesh=None) -> dict:
     """Build SA + LCP + LRS with per-phase timing; print the full report.
 
     Returns the structured-results dict (also printed as text blocks),
     with the doubling and PLCP round counts, and the carried-keys
     build's chain mode, word count and refinement keys where it ran
     (``declined`` where it fell back). ``arrays``: optional
-    dict that receives the ``sa`` and ``lcp`` tensors."""
+    dict that receives the ``sa`` and ``lcp`` tensors.
+
+    ``backend`` "sharded" builds over ``mesh`` (a ``parallel.Mesh``), or
+    when it is None over ``make_mesh(n_devices, device=device)``: by
+    default one shard per visible card."""
     from hpc_suffix_array_tpu_torch.core.lcp import (
         build_lcp_array, build_sa_lcp, lcp_big_min)
     from hpc_suffix_array_tpu_torch.core.lrs import (
@@ -67,14 +80,33 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
     dev = resolve_device(device)
     n = int(text.shape[0])
     info: dict = {}
+    devices = [dev]
+    if backend == "sharded":
+        from hpc_suffix_array_tpu_torch import parallel
 
-    synchronize(dev)
+        if mesh is None:
+            mesh = parallel.make_mesh(n_devices, device=dev)
+        dev, devices = mesh.devices[0], mesh.devices
+        kind = "card(s)" if dev.type == "cuda" else f"{dev.type} device(s)"
+        print(f"mesh: {mesh.size} shards on {mesh.n_cards} {kind}",
+              file=out)
+    elif mesh is not None:
+        raise ValueError("a mesh needs backend='sharded'")
+
+    _sync(devices)
     t0 = time.perf_counter()
     # The text is staged once, inside the SA phase as in the JAX CLI;
-    # the routers plan on the host bytes.
+    # the single-device routers plan on the host bytes, the sharded
+    # builders shard the staged copy.
     text_dev = as_byte_tensor(text, dev)
     combined = None
-    if n > lcp_big_min():
+    if mesh is not None and n > parallel.sharded_msd_min():
+        # The sharded fused router, as in the JAX CLI.
+        combined = parallel.build_sa_lcp_sharded(text_dev, mesh, info=info)
+        sa = combined[0]
+    elif mesh is not None:
+        sa = parallel.build_suffix_array_sharded(text_dev, mesh, info=info)
+    elif n > lcp_big_min():
         # One carried-keys pass gives SA and LCP together; if it falls
         # back to doubling and PLCP, both land in the SA phase too.
         combined = build_sa_lcp(text, device=dev, info=info,
@@ -83,18 +115,27 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
     else:
         sa = build_suffix_array(text, device=dev, info=info,
                                 text_dev=text_dev)
-    synchronize(dev)
+    _sync(devices)
     t1 = time.perf_counter()
-    lcp = (combined[1] if combined is not None else
-           build_lcp_array(text, sa, device=dev, info=info,
-                           text_dev=text_dev))
+    if combined is not None:
+        lcp = combined[1]
+    elif mesh is not None:
+        lcp = parallel.build_lcp_array_sharded(text_dev, sa, mesh,
+                                               info=info)
+    else:
+        lcp = build_lcp_array(text, sa, device=dev, info=info,
+                              text_dev=text_dev)
     lrs = find_longest_repeated_substring(text_dev, sa, lcp, device=dev)
-    synchronize(dev)
+    _sync(devices)
     t2 = time.perf_counter()
     sa_time, lcp_time, total_time = t1 - t0, t2 - t1, t2 - t0
 
-    valid = (is_valid_suffix_array(text_dev, sa, device=dev)
-             if validate else None)
+    if not validate:
+        valid = None
+    elif mesh is not None:
+        valid = parallel.is_valid_suffix_array_sharded(text_dev, sa, mesh)
+    else:
+        valid = is_valid_suffix_array(text_dev, sa, device=dev)
 
     print("\n=== RESULTS ===", file=out)
     if validate:
@@ -114,13 +155,13 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
         _detail_dump(text, sa.cpu().numpy(), lcp.cpu().numpy(), out)
 
     results = {
-        "implementation": implementation_name(dev),
+        "implementation": implementation_name(dev, backend),
         "filename": filename,
         "file_size": n,
         "total_time": total_time,
         "sa_time": sa_time,
         "lcp_time": lcp_time,
-        "processes": 1,
+        "processes": 1 if mesh is None else mesh.size,
         "valid": valid,
         "lrs_length": len(lrs) if lrs else 0,
         "rounds": info.get("rounds", 0),
@@ -184,13 +225,22 @@ def _print_structured(r: dict, dialect: str, out) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="sa-cli-torch",
-        description="Suffix array / LCP / LRS on one device (PyTorch port)")
+        description="Suffix array / LCP / LRS on one device or a mesh of "
+                    "shards (PyTorch port)")
     p.add_argument("input",
                    help="input file path or literal string; an argument "
                         "containing '/' or '.' is treated as a file")
     p.add_argument("--device", default="cuda",
                    help="torch device to build on (default: cuda; raises "
                         "when CUDA is unavailable)")
+    p.add_argument("--backend", choices=["single", "sharded"],
+                   default="single",
+                   help="single-device build or block-sharded build over "
+                        "a mesh of shards")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shards for --backend sharded (a power of two; "
+                        "default: one per visible card; shard i sits on "
+                        "card i mod the card count)")
     p.add_argument("--no-validate", action="store_true",
                    help="skip the O(n) self-validation pass")
     p.add_argument("--dialect", choices=["sequential", "mpi", "both"],
@@ -207,6 +257,11 @@ def main(argv=None) -> int:
     # Outside the FAILED handler: a missing device is a usage error, not
     # a build failure, and must never turn into a CPU run.
     device = resolve_device(args.device)
+    mesh = None
+    if args.backend == "sharded":
+        from hpc_suffix_array_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.devices, device=device)
 
     is_file = (args.force_file
                or (looks_like_file(args.input) and not args.string))
@@ -240,11 +295,11 @@ def main(argv=None) -> int:
                 device_trace)
             with device_trace(args.trace, device):
                 run(text, filename, device, validate=not args.no_validate,
-                    dialect=args.dialect)
+                    dialect=args.dialect, backend=args.backend, mesh=mesh)
             print(f"device trace written to {args.trace}")
         else:
             run(text, filename, device, validate=not args.no_validate,
-                dialect=args.dialect)
+                dialect=args.dialect, backend=args.backend, mesh=mesh)
     except KeyboardInterrupt:
         raise
     except Exception as e:
@@ -255,7 +310,7 @@ def main(argv=None) -> int:
         print(f"Error: build failed: {type(e).__name__}: {msg}",
               file=sys.stderr)
         print("\n===STRUCTURED_RESULTS===")
-        print(f"IMPLEMENTATION:{implementation_name(device)}")
+        print(f"IMPLEMENTATION:{implementation_name(device, args.backend)}")
         print(f"FILENAME:{filename}")
         print(f"FILE_SIZE:{len(text)}")
         print("STATUS:FAILED")

@@ -54,6 +54,15 @@ Modes:
             the ten longest idle gaps with the device operations around
             them and the host's events inside them. Each trace is
             written under ``OUT/trace``, read and removed.
+  sharded   the sharded backend (``parallel/``) at 2^28 random alnum
+            with P = 1, 2, 4 and 8 shards on the one card: a warm-up,
+            then the sharded build, the distributed PLCP and the sharded
+            validator timed one by one (host clock, synced) with each
+            phase's peak, the rounds and the radix passes run; beside
+            them the single-device doubling + PLCP on the same text; then
+            ``device_trace`` around the P = 4 build (busy and idle
+            share, the ten device operations with the most time) and
+            around the P = 4 distributed PLCP at 2^24.
 
 Texts are made on the card from a seeded ``torch.Generator`` (words on
 the host, in batches) and copied to the host once
@@ -432,10 +441,99 @@ def mode_trace() -> None:
         torch.cuda.empty_cache()
 
 
+def _timed_peak(fn):
+    """(seconds, peak bytes above the allocation before, result) of one
+    synced call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base, out)
+
+
+def mode_sharded() -> None:
+    from hpc_suffix_array_tpu_torch.core.lcp import (
+        lcp_from_plcp, plcp_kernel)
+    from hpc_suffix_array_tpu_torch.core.suffix_array import (
+        build_suffix_array_doubling)
+    from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+    from hpc_suffix_array_tpu_torch.parallel import (
+        build_lcp_array_sharded, build_suffix_array_sharded,
+        is_valid_suffix_array_sharded, make_mesh)
+    from hpc_suffix_array_tpu_torch.utils.profiling import (
+        device_busy, device_trace, read_trace)
+
+    n = 1 << 28
+    t = device_random_text(n, 0, "cuda")
+    for p in (1, 2, 4, 8):
+        mesh = make_mesh(p, devices=["cuda:0"])
+        build_suffix_array_sharded(t, mesh)             # warm-up
+        info: dict = {}
+        radix_sort_words.passes_run = 0
+        sa_s, sa_peak, sa = _timed_peak(
+            lambda: build_suffix_array_sharded(t, mesh, info=info))
+        passes = radix_sort_words.passes_run
+        lcp_s, lcp_peak, lcp = _timed_peak(
+            lambda: build_lcp_array_sharded(t, sa, mesh, info=info))
+        val_s, val_peak, ok = _timed_peak(
+            lambda: is_valid_suffix_array_sharded(t, sa, mesh))
+        say("sharded", f"n=2^28 alnum P={p}: rounds {info['rounds']}, "
+                       f"radix passes run {passes}; SA {sa_s:.4f} s peak "
+                       f"{gib(sa_peak)}; PLCP {lcp_s:.4f} s (rounds "
+                       f"{info['plcp_rounds']}) peak {gib(lcp_peak)}; "
+                       f"validator {val_s:.4f} s ({ok}) peak "
+                       f"{gib(val_peak)}")
+        del sa, lcp
+        torch.cuda.empty_cache()
+    info = {}
+    sa_s, sa_peak, sa = _timed_peak(
+        lambda: build_suffix_array_doubling(t, device="cuda", info=info))
+    lcp_s, lcp_peak, _ = _timed_peak(
+        lambda: lcp_from_plcp(plcp_kernel(t, sa)[0], sa))
+    say("sharded", f"n=2^28 alnum single-device doubling: rounds "
+                   f"{info['rounds']}; SA {sa_s:.4f} s peak {gib(sa_peak)}; "
+                   f"PLCP {lcp_s:.4f} s peak {gib(lcp_peak)}")
+    del sa
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(4, devices=["cuda:0"])
+    out = f"{OUT}/trace/sharded"
+    with device_trace(out, "cuda"):
+        build_suffix_array_sharded(t, mesh)
+        torch.cuda.synchronize()
+    busy = device_busy(read_trace(out), n_top=10, n_gaps=3)
+    say("sharded", f"trace P=4 build: {busy['n_events']} device "
+                   f"events, window {busy['window_ms']:.2f} ms, busy "
+                   f"{busy['busy_ms']:.2f} ms, idle share "
+                   f"{busy['idle_share']:.4f}")
+    say("sharded", f"trace P=4 build top device operations: "
+                   f"{json.dumps(busy['top'])}")
+    os.remove(f"{out}/trace.json")
+
+    # The distributed PLCP at 2^24 (its 2^28 trace holds over 10^5
+    # launches).
+    t = t[:1 << 24].clone()
+    sa = build_suffix_array_sharded(t, mesh)
+    build_lcp_array_sharded(t, sa, mesh)                  # warm-up
+    with device_trace(out, "cuda"):
+        build_lcp_array_sharded(t, sa, mesh)
+        torch.cuda.synchronize()
+    busy = device_busy(read_trace(out), n_top=5, n_gaps=3)
+    say("sharded", f"trace P=4 PLCP n=2^24: {busy['n_events']} device "
+                   f"events, window {busy['window_ms']:.2f} ms, busy "
+                   f"{busy['busy_ms']:.2f} ms, idle share "
+                   f"{busy['idle_share']:.4f}; top "
+                   f"{json.dumps(busy['top'])}")
+    os.remove(f"{out}/trace.json")
+
+
 MODES = {"check": mode_check, "cross": mode_cross, "geometry": mode_geometry,
          "words30": mode_words30, "n31": mode_n31, "route": mode_route,
          "validate": mode_validate, "warm": mode_warm, "sweep": mode_sweep,
-         "small": mode_small, "trace": mode_trace}
+         "small": mode_small, "trace": mode_trace, "sharded": mode_sharded}
 
 
 if __name__ == "__main__":

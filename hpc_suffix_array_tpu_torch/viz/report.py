@@ -17,7 +17,8 @@ from datetime import datetime
 import numpy as np
 
 RESULT_CSVS = ("sequential_results.csv", "sequential_results_twin.csv",
-               "sequential_results_cpu.csv", "parallel_results.csv")
+               "sequential_results_cpu.csv", "sequential_results_cuda.csv",
+               "parallel_results.csv")
 _TEXT_COLUMNS = ("file", "backend", "platform", "builder", "error",
                  "timestamp", "input_mode", "baseline_builder",
                  "scaling_mode")

@@ -503,3 +503,78 @@ def test_sample_k0_device_on_a_text_shorter_than_one_stride():
     tbs.replan_edges(tstate)
     sa = tbs.execute_big(tstate)
     assert np.array_equal(sa.numpy(), suffix_array_oracle(text))
+
+
+# --- the sharded rows -------------------------------------------------------
+
+def test_benchmark_corpora_mesh_sizes_match_jax(tmp_path):
+    """Integer mesh sizes add sharded rows (``<platform>_sharded_P``) and
+    parallel_results.csv with speedup and efficiency against the same
+    run's single-device rows, in the JAX harness's columns."""
+    files = tgen.generate_test_fixtures(tmp_path / "data")[:3]
+    jharness.benchmark_corpora(files, results_dir=tmp_path / "j",
+                               mesh_sizes=(None, 2), verbose=False)
+    rows = tharness.benchmark_corpora(files, results_dir=tmp_path / "t",
+                                      device="cpu", mesh_sizes=(None, 2),
+                                      verbose=False)
+    assert [r["backend"] for r in rows] == (["torch_cpu"] * 3
+                                            + ["cpu_sharded_2"] * 3)
+    jcols, jrows = _read_csv(tmp_path / "j" / "parallel_results.csv")
+    tcols, trows = _read_csv(tmp_path / "t" / "parallel_results.csv")
+    assert tcols == jcols
+    assert len(trows) == len(jrows) == 3
+    for jr, tr in zip(jrows, trows):
+        for col in ("file", "size_bytes", "lrs_length", "success",
+                    "input_mode", "processes", "backend", "platform",
+                    "builder", "baseline_builder", "builder_mismatch"):
+            assert tr[col] == jr[col], col
+        assert float(tr["speedup"]) > 0
+        assert float(tr["efficiency"]) == float(tr["speedup"]) / 2
+    _, seq = _read_csv(tmp_path / "t" / "sequential_results.csv")
+    assert [r["backend"] for r in seq] == ["torch_cpu"] * 3
+
+
+def test_run_benchmark_sharded_matches_single(monkeypatch):
+    """From SA_SHARDED_MSD_MIN up the sharded pipeline times the fused
+    build_sa_lcp_sharded in its SA phase; below it, the split builders."""
+    import hpc_suffix_array_tpu_torch.parallel as tpar
+
+    fused = []
+    real = tpar.build_sa_lcp_sharded
+    monkeypatch.setattr(tpar, "build_sa_lcp_sharded",
+                        lambda *a, **k: fused.append(1) or real(*a, **k))
+    text = tgen.generate_dna_text(1 << 13, seed=3)
+    single = ttiming.run_benchmark(text, device="cpu", validate=True,
+                                   warmup=False)
+    mesh = tpar.make_mesh(4, devices=["cpu"])
+    for msd_min, calls in ((str(1 << 13), 1), (str((1 << 13) + 1), 1)):
+        monkeypatch.setenv("SA_SHARDED_MSD_MIN", msd_min)
+        r = ttiming.run_benchmark(text, validate=True, warmup=False,
+                                  mesh=mesh)
+        assert (r.implementation, r.builder, r.valid) == (
+            "torch_cpu_sharded", "sharded_doubling", True)
+        assert r.lrs_length == single.lrs_length
+        assert len(fused) == calls
+
+
+def test_mesh_sweep_writes_both_csvs(tmp_path):
+    """The sweep reads a corpus file that is already there (here a small
+    one under the 1 MB name) and writes one only where it is missing."""
+    from hpc_suffix_array_tpu_torch.bench import mesh_sweep
+
+    data = tmp_path / "data"
+    data.mkdir()
+    small = tgen.generate_random_text(1 << 12, seed=42)
+    (data / "random_1MB.txt").write_bytes(small.tobytes())
+    rows = mesh_sweep.main(sizes_mb=(1,), out_dir=tmp_path / "out",
+                           data_dir=tmp_path / "data", mesh_sizes=(None, 2),
+                           device="cpu", families=("random",),
+                           charts=False, verbose=False)
+    assert [(r["backend"], r["success"], r["size_bytes"]) for r in rows] == [
+        ("torch_cpu", True, 1 << 12), ("cpu_sharded_2", True, 1 << 12)]
+    _, seq = _read_csv(tmp_path / "out" / "sequential_results_cpu.csv")
+    _, par = _read_csv(tmp_path / "out" / "parallel_results.csv")
+    assert len(seq) == len(par) == 1
+    assert par[0]["builder_mismatch"] == "False"      # doubling both
+    report = tmp_path / "out" / "charts" / "multi_backend_report.txt"
+    assert "[cpu_sharded_2]" in report.read_text()

@@ -124,3 +124,110 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
         cli.main(["banana"])
     with pytest.raises(RuntimeError, match="is_available"):
         cli.main(["banana", "--device", "cuda"])
+
+
+# --- the sharded backend ----------------------------------------------------
+
+MESH_LINE = re.compile(r"^mesh: \d+ shards on \d+ ")
+
+
+def _sharded_comparable(out: str) -> list[str]:
+    """``_comparable`` without the port's mesh line."""
+    return [ln for ln in _comparable(out) if not MESH_LINE.match(ln)]
+
+
+@pytest.mark.parametrize("dialect", ["sequential", "mpi", "both"])
+def test_sharded_main_matches_jax_cli(capsys, dialect):
+    args = ["abcabcabc", "--backend", "sharded", "--devices", "4",
+            "--dialect", dialect]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert _sharded_comparable(got) == _sharded_comparable(want)
+    g, w = _fields(got), _fields(want)
+    for key in [k for k in w if "TIME" in k or k == "IMPLEMENTATION"]:
+        g.pop(key, None)
+        w.pop(key)
+    assert g == w
+    assert "mesh: 4 shards on 1 cpu device(s)" in got
+    assert ("PROCESSES:4" in got) and ("MPI_PROCESSES:4" in got) == (
+        dialect != "sequential")
+    if dialect != "mpi":
+        assert "IMPLEMENTATION:torch_cpu_sharded" in got
+        assert "PATH:sharded_doubling" in got
+
+
+@pytest.mark.parametrize("devices", ["2", "8"])
+def test_sharded_main_on_file_matches_jax_cli(tmp_path, capsys, devices):
+    path = tmp_path / "corpus.txt"
+    path.write_bytes(np.random.default_rng(6).choice(
+        np.frombuffer(b"ACGT", np.uint8), 3000).tobytes())
+    args = [str(path), "--backend", "sharded", "--devices", devices]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert "Valid suffix array: YES" in got
+    assert _sharded_comparable(got) == _sharded_comparable(want)
+
+
+def test_sharded_run_fused_route(monkeypatch):
+    """Above SA_SHARDED_MSD_MIN the sharded SA phase builds SA and LCP
+    together (build_sa_lcp_sharded); the report matches the
+    single-device backend's apart from times, path and processes."""
+    monkeypatch.setenv("SA_SHARDED_MSD_MIN", "1000")
+    text = np.random.default_rng(2).integers(97, 101, 5000).astype(np.uint8)
+    got, single = io.StringIO(), io.StringIO()
+    arrays: dict = {}
+    res = cli.run(text, "fused.txt", "cpu", validate=True,
+                  dialect="sequential", out=got, arrays=arrays,
+                  backend="sharded", n_devices=2)
+    ref: dict = {}
+    cli.run(text, "fused.txt", "cpu", validate=True, dialect="sequential",
+            out=single, arrays=ref)
+    assert res["path"] == "sharded_doubling" and res["processes"] == 2
+    assert res["valid"] is True and res["plcp_rounds"] >= 1
+    assert torch.equal(arrays["sa"], ref["sa"])
+    assert torch.equal(arrays["lcp"], ref["lcp"])
+    keep = [ln for ln in _sharded_comparable(got.getvalue())
+            if not ln.startswith(("PATH:", "PROCESSES:"))]
+    assert keep == [ln for ln in _comparable(single.getvalue())
+                    if not ln.startswith(("PATH:", "PROCESSES:"))]
+
+
+def test_sharded_run_with_a_mesh():
+    from hpc_suffix_array_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(8, devices=["cpu"])
+    text = np.frombuffer(b"mississippi", np.uint8)
+    out = io.StringIO()
+    res = cli.run(text, "direct_string", "cpu", validate=True,
+                  dialect="sequential", out=out, backend="sharded",
+                  mesh=mesh)
+    assert res["processes"] == 8 and res["valid"] is True
+    assert res["implementation"] == "torch_cpu_sharded"
+    assert res["lrs_length"] == 4
+    with pytest.raises(ValueError, match="sharded"):
+        cli.run(text, "direct_string", "cpu", validate=True,
+                dialect="sequential", out=out, mesh=mesh)
+
+
+def test_sharded_devices_must_be_a_power_of_two():
+    with pytest.raises(ValueError, match="power of two"):
+        cli.main(["banana", "--backend", "sharded", "--devices", "3",
+                  "--device", "cpu"])
+
+
+def test_sharded_failed_build_names_the_backend(monkeypatch, capsys):
+    import hpc_suffix_array_tpu_torch.parallel as tpar
+
+    def boom(*args, **kwargs):
+        raise MemoryError("simulated device OOM")
+
+    monkeypatch.setattr(tpar, "build_suffix_array_sharded", boom)
+    assert cli.main(["banana", "--backend", "sharded", "--devices", "2",
+                     "--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "STATUS:FAILED" in out
+    assert "IMPLEMENTATION:torch_cpu_sharded" in out

@@ -33,6 +33,19 @@ assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
 assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
 sa, lcp = tsa.build_sa_lcp(b"banana", device="cpu")
 assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
+import hpc_suffix_array_tpu_torch.parallel as par
+import hpc_suffix_array_tpu_torch.parallel.bitonic
+import hpc_suffix_array_tpu_torch.parallel.gather
+import hpc_suffix_array_tpu_torch.parallel.rerank
+import hpc_suffix_array_tpu_torch.parallel.shift
+import hpc_suffix_array_tpu_torch.bench.mesh_sweep
+mesh = par.make_mesh(4, devices=["cpu"])
+sa, lcp = par.build_sa_lcp_sharded(b"mississippi", mesh)
+assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
+assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
+assert par.is_valid_suffix_array_sharded(b"mississippi", sa, mesh)
+assert cli.main(["banana", "--device", "cpu", "--backend", "sharded",
+                 "--devices", "2"]) == 0
 import tempfile
 import hpc_suffix_array_tpu_torch.bench as bench
 import hpc_suffix_array_tpu_torch.bench.orchestrator as orchestrator
@@ -54,6 +67,10 @@ with tempfile.TemporaryDirectory() as d:
     assert "[torch_cpu]" in viz.generate_multi_backend_report(
         d, d + "/multi.txt").read_text()
     assert len(utils.read_file(str(files[0]))) == 6
+    rows = bench.benchmark_corpora(files[:1], results_dir=d, device="cpu",
+                                   verbose=False, mesh_sizes=(None, 2))
+    assert [row["backend"] for row in rows] == ["torch_cpu",
+                                                "cpu_sharded_2"], rows
     with profiling.device_trace(d + "/trace", "cpu"):
         tsa.build_suffix_array(b"banana", device="cpu")
     assert profiling.read_trace(d + "/trace")

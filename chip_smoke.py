@@ -23,7 +23,9 @@ Drives the port's main paths on the card and checks them:
      sort at 2^28 on the real alnum key words, beside torch.sort, and at
      a refinement round's shape (segment, two window words and the
      positions; 28, 30 and 30 live bits) on 2^28 and 2^22 rows, with
-     the passes it ran and skipped;
+     the passes it ran and skipped, and keys-only (the sharded
+     carried-keys block: 2 or 3 alnum words and the tiebreak, 3 and 4
+     columns, the 4-key histograms in two launches) on 2^27 rows;
   4. correctness: random alnum, DNA, period-1000 repetitive and words
      at 2^22 (the doubling route) and 2^24 (the direct route; words
      with device tie refinement) through build_suffix_array ->
@@ -75,18 +77,26 @@ Drives the port's main paths on the card and checks them:
  12. the sharded backend (parallel/), every shard on the one card: (a)
      build_suffix_array_sharded, build_lcp_array_sharded and
      is_valid_suffix_array_sharded on the four corpora of phase 4 at
-     2^24 with P = 1, 2, 4 and 8 shards, against the SA-IS and Kasai
-     arrays of phase 4, the validator rejecting a swapped pair and a
-     duplicated entry, K1 launched exactly P times per build, the
-     onesweep sort launched and K2/K3 not; (b) the CLI's run() with
-     backend "sharded" on 4 shards at 2^28 on phase 5's random alnum
-     (made by the seeded host generator, so the arrays of phase 5 are
-     the reference), validated, on PATH:sharded_doubling, byte for byte
-     equal to phase 5's single-device SA and LCP, with its peak and
-     launches, then the distributed PLCP alone on its SA, timed; (c)
-     bench/mesh_sweep.py at 16 MB random on one device and on 2, 4 and 8
-     shards: every row a success on platform cuda, parallel_results.csv
-     with the harness's columns. The phase's wall time is printed.
+     2^24 with P = 1, 2, 4 and 8 shards, twice: on the default routes
+     (alnum, DNA and p1000 on the carried-keys builder, PATH sharded_msd,
+     whose LCP the reroute above 8 MiB rebuilds; words may be refused
+     and fall back to doubling) and with msd=False (the doubling builder
+     and the distributed PLCP); against the SA-IS and Kasai arrays of
+     phase 4, the validator rejecting a swapped pair and a duplicated
+     entry, K1 launched exactly P times per carried-keys sort
+     (pack_words) and per doubling build (pack_ranks), the onesweep sort
+     launched and K2/K3 not; (b) the CLI's run() with backend "sharded"
+     on 4 shards at 2^28 on phase 5's random alnum (made by the seeded
+     host generator, so the arrays of phase 5 are the reference),
+     validated, on PATH:sharded_msd (one carried-keys sort for SA and
+     LCP), byte for byte equal to phase 5's single-device SA and LCP,
+     with its peak and launches, then the distributed PLCP alone on its
+     SA, timed; (c) bench/mesh_sweep.py at 16 MB random on one device
+     and on 2, 4 and 8 shards: every row a success on platform cuda,
+     parallel_results.csv with the harness's columns; (d)
+     build_sa_lcp_sharded at 2^28 p1000 on 4 shards, in chain mode, byte
+     for byte against phase 6's single-device arrays, timed, with its
+     peak. The phase's wall time is printed.
 
 Phases 10, 11 and 12 write under build/smoke.
 
@@ -101,7 +111,7 @@ from the words run of phase 7 (K2 and K3 read 0 there: the sort no
 longer runs them; their ``check_launches`` are those of the one K2 +
 glue + K3 pass of phase 3 that is held against the onesweep pass) and
 its ``harness_launches`` from the twin sweep of phase 10 and its
-``sharded_launches`` from the sharded CLI run of phase 12, with
+``sharded_launches`` from the sharded CLI run of phase 12b, with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -159,12 +169,13 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     place_runs, place_runs_reference, radix_pass, radix_sort_words,
     radix_sort_words_reference, run_offsets)
 from hpc_suffix_array_tpu_torch.parallel import (
-    build_lcp_array_sharded, build_suffix_array_sharded,
+    build_lcp_array_sharded, build_sa_lcp_sharded, build_suffix_array_sharded,
     is_valid_suffix_array_sharded, make_mesh)
 from hpc_suffix_array_tpu_torch.utils.profiling import (
     device_busy, device_trace, read_trace)
 from hpc_suffix_array_tpu_torch.viz import generate_statistics_report
 
+T0 = time.perf_counter()
 FULL_N = 1 << 28
 MSD_N = 1 << 30
 MAX_N = (1 << 31) - 1
@@ -213,7 +224,8 @@ CORPORA = (("random alnum", generate_random_text),
 
 
 def phase(msg: str) -> None:
-    print(msg, flush=True)
+    """Prints a phase's line with the seconds since the script began."""
+    print(f"{msg} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -517,6 +529,36 @@ def compare_sort(text: np.ndarray) -> dict:
             "plain_ms": median_ms(
                 lambda a: radix_sort_words_reference(*a, 30), setup=fresh),
             "torch_sort_ms": median_ms(composite)}
+
+
+def compare_keys_only_sort(text: np.ndarray, n: int, nw: int) -> dict:
+    """radix_sort_words keys-only, the sharded carried-keys builder's
+    block: ``nw`` alnum key words (31 live bits, as the builder reads
+    them beside PAD_KEY) and the unique tiebreak, no payload, on ``n``
+    rows; four keys count their histograms in two launches."""
+    t = torch.tensor(text[:n], dtype=torch.uint8, device="cuda")
+    remap, _, _ = alphabet_remap(text[:n])
+    keys = direct_keys(t, remap, 6, 5, nw, False)
+    del t
+    keys.append(torch.arange(n, dtype=torch.int32, device="cuda").flip(0))
+    live = [31] * nw + [max(1, (n - 1).bit_length())]
+
+    def fresh():
+        return [k.clone() for k in keys]
+
+    before = digit_histograms.launches
+    (got, _), passes = sort_and_count(fresh(), None, live)
+    hist_launches = digit_histograms.launches - before
+    err = exact(got, radix_sort_words_reference(fresh(), None, live)[0],
+                f"keys-only radix_sort_words, {nw + 1} keys, n={n}")
+    del got
+    return {"max_abs_err": err, "passes": passes,
+            "hist_launches": hist_launches,
+            "ms": median_ms(lambda a: radix_sort_words(a, None, live),
+                            setup=fresh),
+            "plain_ms": median_ms(
+                lambda a: radix_sort_words_reference(a, None, live),
+                setup=fresh)}
 
 
 def compare_refine_sort(n: int) -> dict:
@@ -935,13 +977,39 @@ def sharded_counts() -> dict:
     return {**launches(), **passes()}
 
 
-def check_sharded_launches(counts: dict, n_shards: int, name: str) -> None:
-    """A sharded build launches K1 once per shard, runs the onesweep
-    sort, and never launches K2 or K3."""
-    if (counts["pack_ranks"], counts["pack_words"]) != (n_shards, 0):
-        raise AssertionError(f"{name}: K1 launched {counts['pack_ranks']} "
-                             f"+ {counts['pack_words']} times, not "
-                             f"{n_shards}")
+@contextlib.contextmanager
+def env(**values):
+    """The environment variables ``values`` for the block's duration."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# Raised for the runs that must take the distributed PLCP, not the
+# carried-keys LCP (the reroute above SA_LCP_BIG_MIN).
+PLCP_ONLY = {"SA_LCP_BIG_MIN": 1 << 40}
+
+
+def check_sharded_launches(counts: dict, n_shards: int, name: str,
+                           path: str, sorts: int) -> None:
+    """A sharded build launches K1 once per shard and attempt: each
+    carried-keys sort (``sorts``, refused ones included) packs its key
+    words (``pack_words``), and the doubling fallback its ranks
+    (``pack_ranks``, on path sharded_doubling); both sort on the
+    onesweep kernels, and nothing launches K2 or K3."""
+    want = (n_shards * sorts,
+            n_shards if path == "sharded_doubling" else 0)
+    if (counts["pack_words"], counts["pack_ranks"]) != want:
+        raise AssertionError(f"{name} ({path}, {sorts} carried-keys "
+                             f"sorts): K1 launched {counts['pack_words']} "
+                             f"+ {counts['pack_ranks']} times, not {want}")
     if counts["digit_histograms"] < 1 or counts["onesweep_pass"] < 1:
         raise AssertionError(f"{name}: the onesweep sort did not run: "
                              f"{counts}")
@@ -950,10 +1018,14 @@ def check_sharded_launches(counts: dict, n_shards: int, name: str) -> None:
 
 
 def sharded_corpus(name: str, text: np.ndarray, want_sa: np.ndarray,
-                   want_lcp: np.ndarray, n_shards: int, card: str) -> dict:
+                   want_lcp: np.ndarray, n_shards: int, card: str,
+                   msd: bool | None) -> dict:
     """[12a] the sharded SA, LCP and validator on ``n_shards`` shards of
     the one card, against SA-IS and Kasai; the validator must reject a
-    swapped pair and a duplicated entry."""
+    swapped pair and a duplicated entry. ``msd`` None: the default
+    routes (the carried keys from 4 MiB, and the LCP's carried-keys
+    reroute above 8 MiB); False: the doubling builder and the
+    distributed PLCP."""
     mesh = make_mesh(n_shards, devices=["cuda:0"])
     text_dev = as_byte_tensor(text, "cuda")
     torch.cuda.empty_cache()
@@ -962,46 +1034,58 @@ def sharded_corpus(name: str, text: np.ndarray, want_sa: np.ndarray,
     info: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sa = build_suffix_array_sharded(text_dev, mesh, info=info)
+    sa = build_suffix_array_sharded(text_dev, mesh, info=info, msd=msd)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     counts = sharded_counts()
-    check_sharded_launches(counts, n_shards, f"{name} P={n_shards}")
-    lcp = build_lcp_array_sharded(text_dev, sa, mesh, info=info)
+    check_sharded_launches(counts, n_shards, f"{name} P={n_shards}",
+                           info["path"], info.get("msd_sorts", 0))
+    with env(**(PLCP_ONLY if msd is False else {})):
+        lcp = build_lcp_array_sharded(text_dev, sa, mesh, info=info)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     valid = is_valid_suffix_array_sharded(text_dev, sa, mesh)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated()
+    tag = f"{name} P={n_shards} msd={msd}"
     if not np.array_equal(sa.cpu().numpy(), want_sa):
-        raise AssertionError(f"{name} P={n_shards}: SA differs from SA-IS")
+        raise AssertionError(f"{tag}: SA differs from SA-IS")
     if not np.array_equal(lcp.cpu().numpy(), want_lcp):
-        raise AssertionError(f"{name} P={n_shards}: LCP differs from Kasai")
+        raise AssertionError(f"{tag}: LCP differs from Kasai")
     if not valid:
-        raise AssertionError(f"{name} P={n_shards}: validator rejected the "
-                             "true SA")
+        raise AssertionError(f"{tag}: validator rejected the true SA")
     swapped, dup = sa.clone(), sa.clone()
     swapped[[10, 11]] = swapped[[11, 10]]
     dup[5] = dup[6]
     for bad, what in ((swapped, "a swapped pair"), (dup, "a duplicate")):
         if is_valid_suffix_array_sharded(text_dev, bad, mesh):
-            raise AssertionError(f"{name} P={n_shards}: validator accepted "
-                                 f"{what}")
-    out = {"P": n_shards, "path": info["path"], "rounds": info["rounds"],
-           "plcp_rounds": info["plcp_rounds"], "sa_s": t1 - t0,
+            raise AssertionError(f"{tag}: validator accepted {what}")
+    want_path = ("sharded_doubling" if msd is False
+                 else "sharded_msd" if name != "words" else None)
+    if want_path and info["path"] != want_path:
+        raise AssertionError(f"{tag}: took {info['path']}, not {want_path}")
+    out = {"P": n_shards, "msd": msd, "path": info["path"],
+           "msd_sorts": info.get("msd_sorts", 0),
+           "chain_mode": info.get("chain_mode"),
+           "n_words": info.get("n_words"), "rounds": info.get("rounds"),
+           "plcp_rounds": info.get("plcp_rounds"), "sa_s": t1 - t0,
            "lcp_s": t2 - t1, "validate_s": t3 - t2,
            "peak_gib": peak / 2**30, "launches": counts}
-    phase(f"[12a] {name} n=2^24 P={n_shards}: SA == SA-IS, LCP == Kasai, "
-          f"validator YES/NO/NO ok; {json.dumps(out)} ({card})")
+    phase(f"[12a] {name} n=2^24 P={n_shards} "
+          f"{'default route' if msd is None else 'msd=False'}: SA == "
+          f"SA-IS, LCP == Kasai, validator YES/NO/NO ok; {json.dumps(out)} "
+          f"({card})")
     return out
 
 
 def sharded_cli(text: np.ndarray, ref: dict, card: str) -> dict:
     """[12b] cli.run with the sharded backend on SHARDED_P shards of the
-    one card at 2^28, validated, byte for byte against the single-device
-    run of phase 5; then the distributed PLCP alone on its SA, timed.
-    Returns the launch counts of the CLI run."""
+    one card at 2^28, validated, on the carried-keys route (one sort, K1
+    once per shard), byte for byte against the single-device run of
+    phase 5; then the distributed PLCP alone on its SA (the carried-keys
+    reroute held off), timed. Returns the launch counts of the CLI
+    run."""
     mesh = make_mesh(SHARDED_P, devices=["cuda:0"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1014,14 +1098,15 @@ def sharded_cli(text: np.ndarray, ref: dict, card: str) -> dict:
     counts = sharded_counts()
     peak = torch.cuda.max_memory_allocated()
     report = buf.getvalue()
-    for needle in ("Valid suffix array: YES", "PATH:sharded_doubling\n",
+    for needle in ("Valid suffix array: YES", "PATH:sharded_msd\n",
                    f"mesh: {SHARDED_P} shards on 1 card(s)",
                    f"PROCESSES:{SHARDED_P}\n", f"MPI_PROCESSES:{SHARDED_P}\n",
                    "IMPLEMENTATION:cuda_sharded\n"):
         if needle not in report:
             raise AssertionError(f"sharded cli.run lacks {needle!r}:\n"
                                  + report)
-    check_sharded_launches(counts, SHARDED_P, "sharded cli.run 2^28")
+    check_sharded_launches(counts, SHARDED_P, "sharded cli.run 2^28",
+                           res["path"], 1)
     if not (torch.equal(arrays["sa"].cpu(), ref["sa"])
             and torch.equal(arrays["lcp"].cpu(), ref["lcp"])):
         raise AssertionError("sharded cli.run 2^28: SA or LCP differs from "
@@ -1029,19 +1114,53 @@ def sharded_cli(text: np.ndarray, ref: dict, card: str) -> dict:
     text_dev = as_byte_tensor(text, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    build_lcp_array_sharded(text_dev, arrays["sa"], mesh)
+    with env(**PLCP_ONLY):
+        build_lcp_array_sharded(text_dev, arrays["sa"], mesh)
     torch.cuda.synchronize()
     plcp_s = time.perf_counter() - t0
     phase(f"[12b] cli.run n=2^28 random alnum, --backend sharded, "
           f"{SHARDED_P} shards on one card: Valid suffix array: YES; "
-          f"PATH:{res['path']}; SA and LCP == the single-device run's, "
-          f"byte for byte; rounds={res['rounds']} plcp_rounds="
-          f"{res['plcp_rounds']}; SA_TIME {res['sa_time']:.3f} s (sharded "
-          f"doubling + distributed PLCP), LCP_TIME {res['lcp_time']:.3f} s "
-          f"(LRS), TOTAL_TIME {res['total_time']:.3f} s; distributed PLCP "
+          f"PATH:{res['path']} chain_mode={res.get('chain_mode')} "
+          f"n_words={res.get('n_words')}; SA and LCP == the single-device "
+          f"run's, byte for byte; SA_TIME {res['sa_time']:.3f} s (one "
+          f"carried-keys sort, SA and LCP), LCP_TIME {res['lcp_time']:.3f} "
+          f"s (LRS), TOTAL_TIME {res['total_time']:.3f} s; distributed PLCP "
           f"alone {plcp_s:.3f} s; peak {peak / 2**30:.2f} GiB; launches "
           f"{json.dumps(counts)} ({card})")
     return counts
+
+
+def sharded_chain(text: np.ndarray, ref: dict, card: str) -> None:
+    """[12d] build_sa_lcp_sharded on SHARDED_P shards at 2^28 p1000:
+    chain mode, byte for byte against phase 6's single-device arrays."""
+    mesh = make_mesh(SHARDED_P, devices=["cuda:0"])
+    text_dev = as_byte_tensor(text, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    info: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa, lcp = build_sa_lcp_sharded(text_dev, mesh, info=info)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = sharded_counts()
+    check_sharded_launches(counts, SHARDED_P, "sharded p1000 2^28",
+                           info["path"], info.get("msd_sorts", 0))
+    if info["path"] != "sharded_msd" or not info.get("chain_mode"):
+        raise AssertionError(f"sharded p1000 2^28 did not take chain mode: "
+                             f"{info}")
+    if not (torch.equal(sa.cpu(), ref["sa"])
+            and torch.equal(lcp.cpu(), ref["lcp"])):
+        raise AssertionError("sharded p1000 2^28: SA or LCP differs from "
+                             "the single-device run")
+    phase(f"[12d] build_sa_lcp_sharded n=2^28 p1000, {SHARDED_P} shards on "
+          f"one card: SA and LCP == the single-device run's, byte for "
+          f"byte; path {info['path']} chain_mode {info['chain_mode']} "
+          f"n_words {info['n_words']} msd_sorts {info['msd_sorts']}; "
+          f"{dt:.3f} s; peak {peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps(counts)} ({card})")
 
 
 def sharded_sweep(card: str) -> None:
@@ -1192,8 +1311,18 @@ def main() -> int:
               f"{rsrt[n]['ms']:.3f} ms, plain {rsrt[n]['plain_ms']:.3f} ms "
               f"({card})")
         torch.cuda.empty_cache()
+    ksrt = {}
+    for nw in (2, 3):
+        ksrt[nw] = r = compare_keys_only_sort(alnum, 1 << 27, nw)
+        phase(f"[3] radix_sort_words keys-only n=2^27 ({nw} alnum words, "
+              f"tiebreak; {nw + 1} columns): exact; run/skipped "
+              f"{r['passes'][0]}/{r['passes'][1]}, digit_histograms "
+              f"launches {r['hist_launches']}; kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms ({card})")
+        torch.cuda.empty_cache()
     sort_err = max([srt["max_abs_err"]]
-                   + [r["max_abs_err"] for r in rsrt.values()])
+                   + [r["max_abs_err"] for r in rsrt.values()]
+                   + [r["max_abs_err"] for r in ksrt.values()])
 
     # 4) correctness through the routers
     oracles = {}
@@ -1224,8 +1353,12 @@ def main() -> int:
     del arrays
 
     # 6) periodic text through the CLI: chain mode on the direct route
-    res, counts, peak = run_cli(generate_repetitive_text(FULL_N, SEED),
-                                "repetitive_p1000_2^28")
+    p1000 = generate_repetitive_text(FULL_N, SEED)
+    arrays = {}
+    res, counts, peak = run_cli(p1000, "repetitive_p1000_2^28", arrays)
+    # Phase 12d holds the sharded chain-mode build against these arrays.
+    chain_ref = (p1000, {k: v.cpu() for k, v in arrays.items()})
+    del arrays, p1000
     if not res.get("chain_mode"):
         raise AssertionError("p1000 at 2^28 did not run in chain mode")
     phase(f"[6] cli.run n=2^28 p1000: Valid suffix array: YES; "
@@ -1295,11 +1428,15 @@ def main() -> int:
     for name, gen in CORPORA:
         text = gen(SHARDED_N, SEED)
         for p in SHARDS:
-            sharded_corpus(name, text, *oracles[name], p, card)
+            for msd in (None, False):
+                sharded_corpus(name, text, *oracles[name], p, card, msd)
     sharded_launches = sharded_cli(*sharded_ref, card)
     del sharded_ref
     torch.cuda.empty_cache()
     sharded_sweep(card)
+    sharded_chain(*chain_ref, card)
+    del chain_ref
+    torch.cuda.empty_cache()
     phase(f"[12] sharded backend: {time.perf_counter() - t12:.1f} s")
 
     n = FULL_N

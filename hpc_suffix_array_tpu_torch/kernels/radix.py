@@ -1,7 +1,8 @@
 """Stable LSD radix sort: the hand-written kernels and their plain versions.
 
-``radix_sort_words`` sorts an int32 payload by 1-3 int32 key words on
-the onesweep kernels of ``csrc/onesweep.cu``:
+``radix_sort_words`` sorts an int32 payload by 1-3 int32 key words, or
+1-4 key words with no payload, on the onesweep kernels of
+``csrc/onesweep.cu``:
 
 - ``digit_histograms`` reads the key words once and counts the digits
   of every pass;
@@ -215,13 +216,13 @@ def radix_pass(cols, key_col: int, shift: int, rbits: int, staging=None):
                       out=cols)
 
 
-def _check_words(words, payload, live_bits) -> list[int]:
+def _check_words(words, payload, live_bits, max_words: int = MAX_COLS - 1
+                 ) -> list[int]:
     """Checks the sort's columns (``payload`` may be None); returns the
     live bits of each word (``live_bits``: one int for every word, or
     one entry each)."""
-    if not 1 <= len(words) <= MAX_COLS - 1:
-        raise ValueError(f"need 1..{MAX_COLS - 1} key words, got "
-                         f"{len(words)}")
+    if not 1 <= len(words) <= max_words:
+        raise ValueError(f"need 1..{max_words} key words, got {len(words)}")
     per_word = ([live_bits] * len(words) if isinstance(live_bits, int)
                 else list(live_bits))
     if len(per_word) != len(words):
@@ -465,9 +466,11 @@ def sort_passes(cols, per_word: list[int], rbits: int, histograms,
     the plan, then ``one_pass(src, key_col, shift, bits, digit_starts,
     dst)`` for each pass that is not skipped, ping-ponging between
     ``cols`` and one staging set, and one copy back when the number of
-    executed passes is odd. Returns (executed, skipped)."""
+    executed passes is odd. ``cols`` may hold the key words alone (a
+    keys-only sort). Returns (executed, skipped)."""
     plan = pass_plan(per_word, rbits)
-    starts, run = plan_passes(histograms(cols[:-1], per_word, rbits))
+    starts, run = plan_passes(histograms(cols[:len(per_word)], per_word,
+                                         rbits))
     todo = [p for p in range(len(plan)) if run[p]]
     if todo:
         src, dst = cols, [torch.empty_like(c) for c in cols]
@@ -481,17 +484,37 @@ def sort_passes(cols, per_word: list[int], rbits: int, histograms,
     return len(todo), len(plan) - len(todo)
 
 
+def _sort_columns(words, payload) -> list:
+    return list(words) + ([] if payload is None else [payload])
+
+
+def _max_words(payload) -> int:
+    """Key words one sort takes: a pass carries MAX_COLS columns, so 3
+    beside a payload and 4 in a keys-only sort."""
+    return MAX_COLS - (payload is not None)
+
+
 def radix_sort_words_reference(words, payload, live_bits):
     """Plain sort: stable ``torch.sort`` per word, least significant
     first, on the live bits. In place, like ``radix_sort_words``."""
-    per_word = _check_words(words, payload, live_bits)
-    perm = torch.arange(payload.shape[0], device=payload.device)
+    per_word = _check_words(words, payload, live_bits, _max_words(payload))
+    perm = torch.arange(words[0].shape[0], device=words[0].device)
     for w, b in reversed(list(zip(words, per_word))):
         key = (w.long() & ((1 << b) - 1))[perm]
         perm = perm[torch.sort(key, stable=True).indices]
-    for c in list(words) + [payload]:
+    for c in _sort_columns(words, payload):
         c.copy_(c[perm])
     return list(words), payload
+
+
+def _split_histograms(words, per_word, rbits: int) -> torch.Tensor:
+    """``digit_histograms`` of up to four words in launches of at most
+    three (``csrc/onesweep.cu`` kMaxWords): the words after the first,
+    then the first, which is the plan's row order."""
+    if len(words) <= MAX_COLS - 1:
+        return digit_histograms(words, per_word, rbits)
+    return torch.cat([digit_histograms(words[1:], per_word[1:], rbits),
+                      digit_histograms(words[:1], per_word[:1], rbits)])
 
 
 def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
@@ -499,31 +522,33 @@ def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
     int32[n], most significant first), on the low live bits of each
     word, read as unsigned. ``live_bits`` is one int for every word or a
     list with one entry per word (a refinement round's segment word
-    needs only ceil(log2(rows)) bits).
+    needs only ceil(log2(rows)) bits). ``payload`` None sorts 1-4 key
+    words alone (keys-only: where the last key is unique, it is the
+    index, and no payload column is moved).
 
     Sorts IN PLACE: the inputs are one of the two buffer sets the passes
     ping-pong between, so the sort needs one staging set on top.
     Returns (words, payload), sorted. On CUDA tensors it runs one
-    digit_histograms launch and one onesweep_pass launch per pass whose
-    digit is not constant, of ceil(live_bits / rbits) per word, and adds
-    to ``passes_run`` and ``passes_skipped``; on CPU tensors it runs
-    ``radix_sort_words_reference``."""
-    per_word = _check_words(words, payload, live_bits)
+    digit_histograms launch (two for four words) and one onesweep_pass
+    launch per pass whose digit is not constant, of ceil(live_bits /
+    rbits) per word, and adds to ``passes_run`` and ``passes_skipped``;
+    on CPU tensors it runs ``radix_sort_words_reference``."""
+    per_word = _check_words(words, payload, live_bits, _max_words(payload))
     _check_rbits(rbits)
-    if _device_kind(payload, "radix_sort_words") == "cpu":
+    if _device_kind(words[0], "radix_sort_words") == "cpu":
         return radix_sort_words_reference(words, payload, per_word)
-    cols = list(words) + [payload]
-    lookback = LookBack(payload.shape[0], len(pass_plan(per_word, rbits)),
-                        payload.device)
+    cols = _sort_columns(words, payload)
+    lookback = LookBack(words[0].shape[0], len(pass_plan(per_word, rbits)),
+                        words[0].device)
 
     def one_pass(src, key_col, shift, bits, digit_starts, dst):
         onesweep_pass(src, key_col, shift, bits, digit_starts, lookback, dst)
 
-    run, skipped = sort_passes(cols, per_word, rbits, digit_histograms,
+    run, skipped = sort_passes(cols, per_word, rbits, _split_histograms,
                                one_pass)
     radix_sort_words.passes_run += run
     radix_sort_words.passes_skipped += skipped
-    return cols[:-1], cols[-1]
+    return list(words), payload
 
 
 radix_sort_words.passes_run = 0

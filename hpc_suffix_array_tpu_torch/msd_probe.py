@@ -54,15 +54,18 @@ Modes:
             the ten longest idle gaps with the device operations around
             them and the host's events inside them. Each trace is
             written under ``OUT/trace``, read and removed.
-  sharded   the sharded backend (``parallel/``) at 2^28 random alnum
-            with P = 1, 2, 4 and 8 shards on the one card: a warm-up,
-            then the sharded build, the distributed PLCP and the sharded
-            validator timed one by one (host clock, synced) with each
-            phase's peak, the rounds and the radix passes run; beside
-            them the single-device doubling + PLCP on the same text; then
-            ``device_trace`` around the P = 4 build (busy and idle
-            share, the ten device operations with the most time) and
-            around the P = 4 distributed PLCP at 2^24.
+  sharded   the sharded backend (``parallel/``) on P = 1, 2, 4 and 8
+            shards of the one card, both SA+LCP routes: the
+            carried-keys build (``build_sa_lcp_sharded``; a warm-up,
+            then two timed runs) and the sharded doubling plus the
+            distributed PLCP (``msd=False``, the LCP reroute held off;
+            once), each with its peak (host clock, synced): at 2^28
+            random alnum, with the sharded validator and the
+            single-device doubling + PLCP beside them, and at 2^20,
+            2^22 and 2^24 random alnum and p1000; then
+            ``device_trace`` around the P = 4 carried-keys build at 2^28
+            (busy and idle share, top device operations, longest idle
+            gaps) and around the P = 4 distributed PLCP at 2^24.
 
 Texts are made on the card from a seeded ``torch.Generator`` (words on
 the host, in batches) and copied to the host once
@@ -454,39 +457,81 @@ def _timed_peak(fn):
             torch.cuda.max_memory_allocated() - base, out)
 
 
+def _sharded_routes(t: torch.Tensor, p: int, tag: str,
+                    warm: bool = True) -> None:
+    """Both sharded SA+LCP routes on ``t`` over ``p`` shards of the card,
+    timed (host clock, synced) with their peaks: the carried-keys build
+    (``build_suffix_array_sharded_big`` with ``want_lcp``, what
+    ``build_sa_lcp_sharded`` runs from 4 MiB, here at every size; a
+    warm-up first when ``warm``, then two runs) and the sharded doubling
+    plus the distributed PLCP (``msd=False``, the LCP reroute held off),
+    once."""
+    from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+    from hpc_suffix_array_tpu_torch.parallel import (
+        build_lcp_array_sharded, build_suffix_array_sharded,
+        build_suffix_array_sharded_big, make_mesh)
+
+    mesh = make_mesh(p, devices=["cuda:0"])
+
+    def carried(info=None):
+        return build_suffix_array_sharded_big(t, mesh, want_lcp=True,
+                                              info=info)
+
+    if warm:
+        carried()
+    runs = []
+    for _ in range(2):
+        info: dict = {}
+        radix_sort_words.passes_run = 0
+        s, peak, out = _timed_peak(lambda: carried(info))
+        runs.append(f"{s:.4f}")
+        del out
+    say("sharded", f"{tag} P={p} carried keys: chain "
+                   f"{info.get('chain_mode')}, words {info.get('n_words')}, "
+                   f"sorts {info.get('msd_sorts')}, radix passes run "
+                   f"{radix_sort_words.passes_run}; SA+LCP s {runs}; peak "
+                   f"{gib(peak)}")
+    torch.cuda.empty_cache()
+    info = {}
+    sa_s, sa_peak, sa = _timed_peak(
+        lambda: build_suffix_array_sharded(t, mesh, info=info, msd=False))
+    os.environ["SA_LCP_BIG_MIN"] = str(1 << 40)
+    lcp_s, lcp_peak, _ = _timed_peak(
+        lambda: build_lcp_array_sharded(t, sa, mesh, info=info))
+    os.environ.pop("SA_LCP_BIG_MIN")
+    say("sharded", f"{tag} P={p} doubling + PLCP: rounds {info['rounds']}, "
+                   f"PLCP rounds {info['plcp_rounds']}; SA {sa_s:.4f} s peak "
+                   f"{gib(sa_peak)}; PLCP {lcp_s:.4f} s peak {gib(lcp_peak)}; "
+                   f"total {sa_s + lcp_s:.4f} s")
+    del sa
+    torch.cuda.empty_cache()
+
+
 def mode_sharded() -> None:
     from hpc_suffix_array_tpu_torch.core.lcp import (
         lcp_from_plcp, plcp_kernel)
     from hpc_suffix_array_tpu_torch.core.suffix_array import (
         build_suffix_array_doubling)
-    from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+    from hpc_suffix_array_tpu_torch.datasets.generate import (
+        device_repetitive_text)
     from hpc_suffix_array_tpu_torch.parallel import (
-        build_lcp_array_sharded, build_suffix_array_sharded,
-        is_valid_suffix_array_sharded, make_mesh)
+        build_lcp_array_sharded, build_sa_lcp_sharded,
+        build_suffix_array_sharded, is_valid_suffix_array_sharded,
+        make_mesh)
     from hpc_suffix_array_tpu_torch.utils.profiling import (
         device_busy, device_trace, read_trace)
 
     n = 1 << 28
     t = device_random_text(n, 0, "cuda")
     for p in (1, 2, 4, 8):
+        _sharded_routes(t, p, "n=2^28 alnum")
         mesh = make_mesh(p, devices=["cuda:0"])
-        build_suffix_array_sharded(t, mesh)             # warm-up
-        info: dict = {}
-        radix_sort_words.passes_run = 0
-        sa_s, sa_peak, sa = _timed_peak(
-            lambda: build_suffix_array_sharded(t, mesh, info=info))
-        passes = radix_sort_words.passes_run
-        lcp_s, lcp_peak, lcp = _timed_peak(
-            lambda: build_lcp_array_sharded(t, sa, mesh, info=info))
+        sa = build_sa_lcp_sharded(t, mesh)[0]
         val_s, val_peak, ok = _timed_peak(
             lambda: is_valid_suffix_array_sharded(t, sa, mesh))
-        say("sharded", f"n=2^28 alnum P={p}: rounds {info['rounds']}, "
-                       f"radix passes run {passes}; SA {sa_s:.4f} s peak "
-                       f"{gib(sa_peak)}; PLCP {lcp_s:.4f} s (rounds "
-                       f"{info['plcp_rounds']}) peak {gib(lcp_peak)}; "
-                       f"validator {val_s:.4f} s ({ok}) peak "
-                       f"{gib(val_peak)}")
-        del sa, lcp
+        say("sharded", f"n=2^28 alnum P={p}: validator {val_s:.4f} s "
+                       f"({ok}) peak {gib(val_peak)}")
+        del sa
         torch.cuda.empty_cache()
     info = {}
     sa_s, sa_peak, sa = _timed_peak(
@@ -502,25 +547,42 @@ def mode_sharded() -> None:
     mesh = make_mesh(4, devices=["cuda:0"])
     out = f"{OUT}/trace/sharded"
     with device_trace(out, "cuda"):
-        build_suffix_array_sharded(t, mesh)
+        build_sa_lcp_sharded(t, mesh)
         torch.cuda.synchronize()
     busy = device_busy(read_trace(out), n_top=10, n_gaps=3)
-    say("sharded", f"trace P=4 build: {busy['n_events']} device "
-                   f"events, window {busy['window_ms']:.2f} ms, busy "
-                   f"{busy['busy_ms']:.2f} ms, idle share "
-                   f"{busy['idle_share']:.4f}")
-    say("sharded", f"trace P=4 build top device operations: "
+    say("sharded", f"trace P=4 carried-keys SA+LCP n=2^28: "
+                   f"{busy['n_events']} device events, window "
+                   f"{busy['window_ms']:.2f} ms, busy {busy['busy_ms']:.2f} "
+                   f"ms, idle share {busy['idle_share']:.4f}")
+    say("sharded", f"trace P=4 carried keys top device operations: "
                    f"{json.dumps(busy['top'])}")
+    say("sharded", f"trace P=4 carried keys longest idle gaps: "
+                   f"{json.dumps(busy['gaps'])}")
     os.remove(f"{out}/trace.json")
+    del t
+    torch.cuda.empty_cache()
+
+    # Both routes below 2^28: where the carried keys start to win
+    # (SA_SHARDED_MSD_MIN, 4 MiB) and, on periodic text, the
+    # deep-repeat gate (SA_SHARDED_CHAIN_MIN, 64 KiB).
+    for log_n in (20, 22, 24):
+        for name, make in (("alnum", device_random_text),
+                           ("p1000", device_repetitive_text)):
+            t = make(1 << log_n, 0, "cuda")
+            for p in (1, 2, 4, 8):
+                _sharded_routes(t, p, f"n=2^{log_n} {name}")
+            del t
 
     # The distributed PLCP at 2^24 (its 2^28 trace holds over 10^5
     # launches).
-    t = t[:1 << 24].clone()
+    t = device_random_text(1 << 24, 0, "cuda")
     sa = build_suffix_array_sharded(t, mesh)
+    os.environ["SA_LCP_BIG_MIN"] = str(1 << 40)
     build_lcp_array_sharded(t, sa, mesh)                  # warm-up
     with device_trace(out, "cuda"):
         build_lcp_array_sharded(t, sa, mesh)
         torch.cuda.synchronize()
+    os.environ.pop("SA_LCP_BIG_MIN")
     busy = device_busy(read_trace(out), n_top=5, n_gaps=3)
     say("sharded", f"trace P=4 PLCP n=2^24: {busy['n_events']} device "
                    f"events, window {busy['window_ms']:.2f} ms, busy "

@@ -5,39 +5,52 @@ Counterpart of ``hpc_suffix_array_tpu/parallel/`` (its single-process
 shards (``parallel/mesh.py``), the shards sort with a block-bitonic
 compare-split network on the port's radix sort, and the LCP array and
 the validator run sharded too. No shard holds more than 2n/P records of
-the sort, and no array is replicated.
+the sort, and no array is replicated. Texts from 4 MiB, and deep-repeat
+texts from 64 KiB, first try the sharded carried-keys builder
+(``parallel/bigsort.py``): one distributed sort gives the SA and the
+LCP.
 
-The JAX package's sharded carried-keys builder (``parallel/bigsort.py``)
-and its multi-process mesh (``parallel/multihost.py``) are not here yet.
+The JAX package's multi-process mesh (``parallel/multihost.py``) and the
+multi-process entry of its ``parallel/bigsort.py`` are not here yet.
 """
 
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
-    Mesh, make_mesh, shard, unshard)
+    Mesh, make_mesh, padded_length, shard, unshard)
 from hpc_suffix_array_tpu_torch.parallel.doubling import (
-    build_suffix_array_sharded, suffix_array_kernel_sharded)
+    build_suffix_array_sharded, suffix_array_kernel_sharded, text_length)
+from hpc_suffix_array_tpu_torch.parallel.bigsort import (
+    build_suffix_array_sharded_big, sharded_msd_min, try_carried_keys,
+    wide_auto)
 from hpc_suffix_array_tpu_torch.parallel.lcp import build_lcp_array_sharded
 from hpc_suffix_array_tpu_torch.parallel.validate import (
     is_valid_suffix_array_sharded)
-
-
-def sharded_msd_min() -> int:
-    """Texts above this many bytes (``SA_SHARDED_MSD_MIN``, 4 MiB, a
-    threshold set on a TPU) take the fused router in the CLI."""
-    import os
-
-    return int(os.environ.get("SA_SHARDED_MSD_MIN", 1 << 22))
 
 
 def build_sa_lcp_sharded(text, mesh=None, info: dict | None = None):
     """Sharded (suffix array, LCP array), the distributed counterpart of
     ``core/lcp.py::build_sa_lcp``.
 
-    The JAX package first tries one carried-keys pass here (its
-    ``parallel/bigsort.py``, ``want_lcp``) and falls back to the doubling
-    builder plus the distributed LCP; this package has the fallback
-    only, so every text takes it. ``info`` receives ``path``, ``rounds``
-    and ``plcp_rounds``."""
-    sa = build_suffix_array_sharded(text, mesh, info=info)
+    Behind the JAX package's gates (``try_carried_keys``) one
+    carried-keys pass gives both (``build_suffix_array_sharded_big``,
+    ``want_lcp``); a refusal falls back to the doubling builder, told not
+    to try the same pass again (``msd=False``), plus the distributed LCP.
+    ``info`` receives ``path`` and the builders' keys. Both arrays are
+    int32: raises ValueError when the padded length reaches 2^31."""
+    mesh = make_mesh() if mesh is None else mesh
+    n = text_length(text)
+    padded_length(n, mesh.size)      # int32 arrays: raises at 2^31
+    msd = None
+    if n >= 8 and try_carried_keys(text, n):
+        try:
+            out = build_suffix_array_sharded_big(text, mesh, want_lcp=True,
+                                                 info=info)
+        except NotImplementedError:
+            msd = False
+        else:
+            if info is not None:
+                info["path"] = "sharded_msd"
+            return out
+    sa = build_suffix_array_sharded(text, mesh, info=info, msd=msd)
     return sa, build_lcp_array_sharded(text, sa, mesh, info=info)
 
 
@@ -48,8 +61,10 @@ __all__ = [
     "shard",
     "unshard",
     "build_suffix_array_sharded",
+    "build_suffix_array_sharded_big",
     "suffix_array_kernel_sharded",
     "build_lcp_array_sharded",
     "is_valid_suffix_array_sharded",
     "sharded_msd_min",
+    "wide_auto",
 ]

@@ -1,0 +1,432 @@
+"""Sharded carried-keys builder: SA (and LCP) from one distributed sort.
+
+Counterpart of the host-text entry of ``hpc_suffix_array_tpu/parallel/
+bigsort.py`` (``build_suffix_array_sharded_big``). Where the sharded
+doubling builder (``parallel/doubling.py``) pays a block-bitonic sort per
+round, texts whose suffixes separate within the first ``nw*spw`` symbols
+(random, DNA and, in chain mode, periodic text) need ONE distributed sort
+of the carried key words:
+
+  1. *Plan (host)*: the one process holds the whole text (``_HostText``):
+     the alphabet, the repeat estimate, the carried word count ``nw`` (2,
+     or 3 when the 2-word residue overflows the mesh's extraction budget)
+     and the chain prediction (``est_repeat > nw*spw``, the JAX
+     package's gate).
+  2. *Keys (device, per shard)*: one K1 launch (``kernels/pack.py::
+     pack_words``) writes the shard's ``nw`` words from its bytes and an
+     ``nw*spw``-byte halo from the next shard (one ``ppermute``); pad
+     rows get ``PAD_KEY`` words, so they sort last.
+  3. *Sort*: ``parallel/bitonic.py::block_bitonic_sort`` of the
+     keys-only block (k0, k1[, k2], tb). The tiebreak ``tb`` is the
+     position (descending in chain mode: ``n - g``), unique per row, so
+     it is both the last key and the index, and the order is total.
+  4. *Post-sort pass (device, plain PyTorch)*: the tie flags against the
+     global predecessor (the left neighbour's last row comes by one
+     ``ppermute``, ``_boundary_prev``), the chain deltas and the LCP from
+     xor and the highest set bit (``_key_lcp``); the tie count, the
+     delta min and max, the residue total and the overflow flag are
+     reduced over the shards and read on the host once an attempt
+     (``read_scalar``).
+  5. *Chain mode / residue*: a uniform chain delta that is a global
+     period finishes periodic text by the chain rule; otherwise each
+     shard compacts at most ``RESIDUE_SLOTS`` tie-group members, the host
+     orders them (``core/bigsort.py::_resolve_residue_host``) and the
+     patches land per shard (``_group_patches``, pads dropped). The
+     JAX package's retry graph is kept: a chain misprediction reruns
+     ascending, and an ascending run tied on more than a quarter of the
+     text reruns in chain mode. What it cannot finish raises
+     NotImplementedError, and the routers fall back to doubling.
+
+Under ``wide_index`` the outputs are int64 and ``tb`` is read as an
+unsigned 32-bit key, so the padded length must stay below 2^32 (the JAX
+package's two-word (hi, lo) index arithmetic is not needed with int64).
+
+Not here yet: the JAX package's multi-process entry
+(``build_suffix_array_sharded_big_mp`` and its ``_DistText`` strategy).
+``_build`` takes its text access through ``tops`` (``feasible``,
+``fetch``, ``period_holds``, ``view``) so a second strategy can join.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from hpc_suffix_array_tpu_torch.core.bigsort import (
+    RESIDUE_SLOTS, _apply_patch, _clamp_lcp, _high_bit, _period_mismatches,
+    _resolve_residue_host, deep_repeat_class, estimate_repeat_len,
+    key_table, packing_mode, residue_feasible)
+from hpc_suffix_array_tpu_torch.core.suffix_array import (
+    alphabet_remap, alphabet_remap_dev, as_byte_array)
+from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.parallel.bitonic import block_bitonic_sort
+from hpc_suffix_array_tpu_torch.parallel.doubling import (
+    padded_shards, text_length)
+from hpc_suffix_array_tpu_torch.parallel.mesh import (
+    Mesh, bucket_size, make_mesh, padded_length, pmax, pmin, ppermute, psum,
+    read_scalar, shard_iota, unshard)
+
+PAD_KEY = 1 << 30      # pad rows' key words: above every packed word
+_BIG = 1 << 30         # the delta minimum's fill where a shard has no tie
+
+
+def sharded_msd_min() -> int:
+    """Texts from this many bytes (``SA_SHARDED_MSD_MIN``, 4 MiB, a
+    threshold set on a TPU) first try the carried-keys builder."""
+    return int(os.environ.get("SA_SHARDED_MSD_MIN", 1 << 22))
+
+
+def try_carried_keys(text, n: int) -> bool:
+    """The JAX routers' gate: from ``sharded_msd_min()`` bytes, and from
+    ``SA_SHARDED_CHAIN_MIN`` (64 KiB, a threshold set on a TPU) for
+    deep-repeat text (one host copy of a tensor's bytes for the repeat
+    estimate)."""
+    if n >= sharded_msd_min():
+        return True
+    return (n >= int(os.environ.get("SA_SHARDED_CHAIN_MIN", 1 << 16))
+            and deep_repeat_class(estimate_repeat_len(as_byte_array(text))))
+
+
+def _boundary_prev(cols: list[list[torch.Tensor]]) -> list[torch.Tensor]:
+    """Each shard's view of its left neighbour's LAST sorted row:
+    ``cols`` are sharded int32 columns; shard i receives an int32[len
+    (cols)] packet. Shard 0 receives zeros, which under minpad packing
+    CAN equal a real row (an all-min-symbol suffix packs to 0), so
+    callers mask the first global row themselves."""
+    packets = [torch.stack([c[me][-1] for c in cols])
+               for me in range(len(cols[0]))]
+    return ppermute(packets, [(i, i + 1) for i in range(len(packets) - 1)])
+
+
+def _pack_words(texts: list[torch.Tensor], table, bits: int, spw: int,
+                nw: int, n_real: int) -> list[list[torch.Tensor]]:
+    """The ``nw`` carried key words of each shard (int32[m] each), one K1
+    launch per shard over its bytes and the next shard's first
+    ``nw*spw`` (the last shard gets zeros); codes past ``n_real`` read
+    0."""
+    P, m = len(texts), texts[0].shape[0]
+    halo = ppermute([t[:nw * spw] for t in texts],
+                    [(i, i - 1) for i in range(1, P)])
+    out = []
+    for me in range(P):
+        ext = torch.cat([texts[me], halo[me]])
+        real = min(max(n_real - me * m, 0), ext.shape[0])
+        out.append(pack_words(ext, table.to(ext.device), bits, spw, real, nw,
+                              n_out=m))
+    return out
+
+
+def _key_lcp(prev_words, sorted_words, spw: int, bits: int, nw: int):
+    """First-mismatch depth (symbols) of adjacent sorted carried keys:
+    xor and the highest set bit per word (symbols pack first-highest in
+    the low spw*bits bits); fully equal rows keep the nw*spw lower bound
+    (the chain rule or the host residue finishes them)."""
+    depth = nw * spw
+    lcp = torch.full_like(sorted_words[0], depth)
+    for w in range(nw - 1, -1, -1):
+        x = prev_words[w] ^ sorted_words[w]
+        off = (w + 1) * spw - 1 - torch.div(_high_bit(x), bits,
+                                            rounding_mode="floor")
+        lcp = torch.where(x != 0, off, lcp)
+    return lcp.clamp_(min=0)
+
+
+def _local_build(bits: int, spw: int, R: int, nw: int, minpad: bool,
+                 texts: list[torch.Tensor], remap: np.ndarray, n_real: int,
+                 desc: bool, wide: bool = False, want_lcp: bool = True):
+    """Carried keys, one distributed sort, tie flags, LCP and residue.
+
+    ``texts``: the sharded padded text (uint8, m per shard). Returns
+    (s_idx, lcp, members, stats): sharded int32 (int64 when ``wide``)
+    suffix array rows and LCP (None without ``want_lcp``), the sharded
+    bool mask of tie-group members (``_residue`` compacts them), and
+    ``stats`` int64[6] = (tie count, delta max, delta min, residue
+    total, shards over R, 0), reduced over the shards as in the JAX
+    package. Pad rows sort last and hold ``n_real``; ``lcp[j] =
+    LCP(sa[j-1], sa[j])``, with 0 at row 0 and on pad rows."""
+    P, m = len(texts), texts[0].shape[0]
+    idx_t = torch.int64 if wide else torch.int32
+    table = key_table(remap, minpad, texts[0].device)
+    words = _pack_words(texts, table, bits, spw, nw, n_real)
+    blocks = []
+    for me in range(P):
+        g = shard_iota(me, m, texts[me].device).to(idx_t)
+        real = g < n_real
+        rows = [torch.where(real, w, PAD_KEY) for w in words[me]]
+        # Pads' tiebreak is their position: their words already put them
+        # last, and a small tiebreak keeps its live bits few.
+        tb = torch.where(real & desc, n_real - g, g)
+        blocks.append(torch.stack(rows + [tb.to(torch.int32)]))
+    del words
+    live = [31] * nw + [max(1, max(P * m - 1, n_real).bit_length())]
+    out = block_bitonic_sort(blocks, nw + 1, live)
+    del blocks
+
+    sw = [[b[w] for b in out] for w in range(nw)]
+    tbs = [b[nw] for b in out]
+    bprev = _boundary_prev(sw + [tbs])
+
+    def index(tb):
+        t = tb.to(torch.int64) & 0xFFFFFFFF if wide else tb
+        return (n_real - t if desc else t).to(idx_t)
+
+    fill = (1 << 62) if wide else _BIG
+    s_idx, lcps, ties, real_l, tie_cnt, dmax, dmin = ([] for _ in range(7))
+    for me in range(P):
+        gpos = shard_iota(me, m, out[me].device).to(idx_t)
+        real_s = gpos < n_real                           # pads sort last
+        s = torch.where(real_s, index(tbs[me]), n_real)
+        prev_w = [torch.cat([bprev[me][w:w + 1], sw[w][me][:-1]])
+                  for w in range(nw)]
+        prev_idx = torch.cat([index(bprev[me][nw:]), s[:-1]])
+        tie = real_s & (gpos > 0)
+        for w in range(nw):
+            tie &= sw[w][me] == prev_w[w]
+        delta = (prev_idx - s) if desc else (s - prev_idx)
+        tie_cnt.append(tie.sum())
+        dmax.append(torch.where(tie, delta, 0).max().long())
+        dmin.append(torch.where(tie, delta, fill).min().long())
+        if want_lcp:
+            lcp = _key_lcp(prev_w, [c[me] for c in sw], spw, bits,
+                           nw).to(idx_t)
+            if desc:       # periodic ties: chain members are consecutive
+                lcp = torch.where(tie, n_real - prev_idx, lcp)
+            # Row 0's manufactured predecessor and pad rows read 0.
+            lcps.append(torch.where(real_s & (gpos > 0), lcp, 0))
+        s_idx.append(s)
+        ties.append(tie)
+        real_l.append(real_s)
+    del out, sw, tbs
+
+    # Residue membership: every element of a tied group (the flag marks
+    # the later row of each tied pair; a group's head joins through its
+    # successor's flag, pulled across the right boundary).
+    nxt = ppermute([t[:1] for t in ties], [(i, i - 1) for i in range(1, P)])
+    members = [(t | torch.cat([t[1:], x])) & r
+               for t, x, r in zip(ties, nxt, real_l)]
+    res_cnt = [mem.sum() for mem in members]
+    stats = torch.stack([
+        psum(tie_cnt)[0], pmax(dmax)[0], pmin(dmin)[0], psum(res_cnt)[0],
+        psum([(c > R).long() for c in res_cnt])[0],
+        torch.zeros_like(res_cnt[0])])
+    return s_idx, (lcps if want_lcp else None), members, stats
+
+
+def _residue(members: list[torch.Tensor], s_idx: list[torch.Tensor],
+             R: int):
+    """Each shard's first ``R`` tie-group members (the JAX package's
+    fixed-size compaction without its pad rows): their global sorted
+    slots (int64) and suffix indices, sharded. One host read per shard
+    (its member count); runs only where the residue is resolved."""
+    slots, idx = [], []
+    for me, mem in enumerate(members):
+        loc = torch.nonzero(mem).view(-1)[:R]
+        slots.append(loc + me * mem.shape[0])
+        idx.append(s_idx[me][loc])
+    return slots, idx
+
+
+def _group_patches(slots_g: np.ndarray, vals: np.ndarray, P: int, m: int,
+                   R: int):
+    """Group global-slot patches by owning shard into (P*R,) padded
+    (local slot, value) arrays: shard p's rows are [p*R, (p+1)*R), -1
+    slots are pads."""
+    out_s = np.full(P * R, -1, np.int64)
+    out_v = np.zeros(P * R, np.int64)
+    sh = (slots_g // m).astype(np.int64)
+    loc = (slots_g % m).astype(np.int64)
+    for p_ in range(P):
+        idx = np.flatnonzero(sh == p_)
+        if len(idx) > R:
+            raise RuntimeError("per-shard residue cap violated")
+        out_s[p_ * R:p_ * R + len(idx)] = loc[idx]
+        out_v[p_ * R:p_ * R + len(idx)] = vals[idx]
+    return out_s, out_v
+
+
+def _patch(col: list[torch.Tensor], ps: np.ndarray, pv: np.ndarray,
+           R: int) -> None:
+    """Each shard writes its own R (local slot, value) rows, pads
+    dropped (``core/bigsort.py::_apply_patch``), in place."""
+    for me, c in enumerate(col):
+        _apply_patch(c, torch.as_tensor(ps[me * R:(me + 1) * R]).to(c.device),
+                     torch.as_tensor(pv[me * R:(me + 1) * R]).to(c.device))
+
+
+class _HostText:
+    """Text access strategy: one process holds the whole text.
+
+    Alphabet, repeat estimate, residue feasibility and residue
+    resolution read the host copy (one device-to-host copy when the text
+    is a tensor); the period check runs on the device; the text is
+    sharded once, from the tensor's device or staged from the host."""
+
+    def __init__(self, text, mesh: Mesh):
+        self.mesh = mesh
+        self.P = mesh.size
+        self.n = text_length(text)
+        self.n_pad = bucket_size(self.n, multiple_of=self.P * 128)
+        if self.n_pad >= 1 << 32:
+            raise ValueError(f"n={self.n} pads to {self.n_pad} positions; "
+                             "the sharded carried-keys builder reads its "
+                             "tiebreak as uint32 and needs fewer than 2^32")
+        self.m = self.n_pad // self.P
+        self.arr = as_byte_array(text)
+        if isinstance(text, torch.Tensor):
+            self.remap, _, _ = alphabet_remap_dev(text.to(torch.uint8))
+        else:
+            self.remap, _, _ = alphabet_remap(self.arr)
+        self.sigma = int(self.remap.max())
+        self.est_repeat = estimate_repeat_len(self.arr)
+        self.texts = padded_shards(text, self.n_pad, mesh)
+        self._text_t = text if isinstance(text, torch.Tensor) else None
+
+    def feasible(self, words: int, cap: float, spw: int) -> bool:
+        # Module-global lookup on purpose: tests monkeypatch
+        # parallel.bigsort.residue_feasible to force the 3-word gate.
+        return residue_feasible(self.arr, self.n, cap, self.est_repeat,
+                                words=words, spw=spw, sigma=self.sigma)
+
+    def fetch(self, xs: list[torch.Tensor]) -> np.ndarray:
+        return unshard(xs).cpu().numpy()
+
+    def period_holds(self, d: int) -> bool:
+        if self._text_t is None:
+            self._text_t = unshard(self.texts)[:self.n]
+        return _period_mismatches(self._text_t, d, self.n) == 0
+
+    def view(self):
+        return self.arr       # _resolve_residue_host wraps it in _ArrView
+
+
+def wide_auto(n_pad: int) -> bool:
+    """Wide (int64) indices when any padded index could reach int32's
+    edge (the JAX package's boundary)."""
+    return n_pad >= (1 << 31) - 1
+
+
+def build_suffix_array_sharded_big(text, mesh: Mesh | None = None,
+                                   force_chain_mode: bool | None = None,
+                                   wide_index: bool | None = None,
+                                   want_lcp: bool = False,
+                                   info: dict | None = None):
+    """Suffix array of ``text`` (str, bytes, uint8 array or tensor) from
+    ONE distributed carried-keys sort over ``mesh`` (default: one shard
+    per visible card), returned whole on the mesh's first device: int32
+    [n], or int64 under ``wide_index`` (default: ``wide_auto`` of the
+    padded length). ``want_lcp``: return ``(sa, lcp)``, the LCP from the
+    sorted keys (xor and highest bit, the chain rule, residue patches).
+
+    Raises NotImplementedError where the ties exceed the bounded residue
+    and are no clean periodic chain: callers fall back to the doubling
+    builder. ``info``: optional dict that receives ``chain_mode`` and
+    ``n_words`` of the attempt that finished and adds the distributed
+    sorts run to ``msd_sorts``."""
+    mesh = make_mesh() if mesh is None else mesh
+    if text_length(text) < 8:
+        raise ValueError("sharded bigsort needs n >= 8; use the doubling "
+                         "builder")
+    tops = _HostText(text, mesh)
+    return _build(tops, force_chain_mode, wide_index, want_lcp, info)
+
+
+def _build(tops, force_chain_mode, wide_index, want_lcp, info=None):
+    """Shared orchestration over a text-access strategy (``tops``)."""
+    bits, spw, minpad = packing_mode(tops.remap)
+    # Carried word count: 2, or 3 when the 2-word expected residue
+    # overflows the mesh-wide extraction budget and 3 words' fits.
+    cap_total = tops.P * RESIDUE_SLOTS / 4
+    nw = 2
+    if not tops.feasible(2, cap_total, spw):
+        if tops.feasible(3, cap_total, spw):
+            nw = 3
+    chain = force_chain_mode
+    if chain is None:
+        chain = tops.est_repeat > nw * spw
+    if wide_index is None:
+        wide_index = wide_auto(tops.n_pad)
+    build = _build_wide if wide_index else _build_narrow
+    return build(tops, bits, spw, minpad, nw, chain, force_chain_mode,
+                 want_lcp, info)
+
+
+def _build_narrow(tops, *plan):
+    """int32 outputs; the padded length stays below 2^31."""
+    padded_length(tops.n, tops.P)
+    return _attempt(tops, *plan, wide=False)
+
+
+def _build_wide(tops, *plan):
+    """int64 outputs (``_HostText`` holds the padded length below
+    2^32)."""
+    return _attempt(tops, *plan, wide=True)
+
+
+def _attempt(tops, bits, spw, minpad, nw, chain, force_chain_mode, want_lcp,
+             info, wide):
+    """One distributed sort and what it leaves: the chain check, the
+    JAX package's retries, the residue patch and the minpad clamp."""
+    n, P, m = tops.n, tops.P, tops.m
+    R = RESIDUE_SLOTS
+    s_idx, lcp_d, members, stats = _local_build(
+        bits, spw, R, nw, minpad, tops.texts, tops.remap, n, chain, wide,
+        want_lcp)
+    tie_cnt, dmax, dmin, _res_total, overflow, _ = read_scalar(stats)
+    if info is not None:
+        info["msd_sorts"] = info.get("msd_sorts", 0) + 1
+
+    def retry(chain_mode: bool):
+        del s_idx[:], members[:]
+        if lcp_d is not None:
+            del lcp_d[:]
+        return _build(tops, chain_mode, wide, want_lcp, info)
+
+    def finish():
+        sa = unshard(s_idx)[:n]
+        if info is not None:
+            info.update(chain_mode=bool(chain), n_words=nw)
+        if not want_lcp:
+            return sa
+        lcp = unshard(lcp_d)[:n]
+        if minpad:     # after the residue patch (see _clamp_lcp)
+            lcp = _clamp_lcp(sa, lcp, n)
+        return sa, lcp
+
+    if chain:
+        if tie_cnt:
+            if not (dmin == dmax and dmax >= 1):
+                if force_chain_mode is None and tie_cnt <= n // 4:
+                    return retry(False)
+                raise NotImplementedError(
+                    "sharded bigsort: residual ties are not uniform "
+                    "arithmetic chains - use the doubling builder")
+            if not tops.period_holds(dmax):
+                if force_chain_mode is None and tie_cnt <= n // 4:
+                    # Uniform deltas that are NOT a global period (a
+                    # min-symbol tail under minpad, one long repeated
+                    # block): a chain misprediction, rerun ascending.
+                    return retry(False)
+                raise NotImplementedError(
+                    f"sharded bigsort: chain delta {dmax} is not a global "
+                    "period - use the doubling builder")
+        return finish()
+
+    if tie_cnt > n // 4 and force_chain_mode is None:
+        return retry(True)
+    if overflow:
+        raise NotImplementedError(
+            "sharded bigsort: window-tied elements exceed the per-shard "
+            "residue cap - use the doubling builder")
+    if tie_cnt:
+        slots, res_idx = _residue(members, s_idx, R)
+        s_sorted, fixed, ls, lv = _resolve_residue_host(
+            tops.view(), tops.fetch(slots), tops.fetch(res_idx), n,
+            want_lcp=want_lcp)
+        ok = s_sorted < n          # pads never join groups, but guard
+        _patch(s_idx, *_group_patches(s_sorted[ok], fixed[ok], P, m, R), R)
+        if want_lcp and len(ls):
+            ok_l = ls < n
+            _patch(lcp_d, *_group_patches(ls[ok_l], lv[ok_l], P, m, R), R)
+    return finish()

@@ -18,7 +18,9 @@ keys (the doubling builder shifts its -1 sentinel by +1, as
 
 A block is one int32 tensor of shape (num_keys + 1, m): the key rows,
 most significant first, then one payload row (the radix sort's
-``MAX_COLS`` = 4 allows up to three keys).
+``MAX_COLS`` = 4 allows up to three keys); or, keys-only, of shape
+(num_keys, m) with up to four keys, where the last key is unique and so
+serves as the index (the carried-keys builder's (k0, k1[, k2], tb)).
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ from hpc_suffix_array_tpu_torch.parallel.mesh import ppermute
 
 
 def _sort_rows(block: torch.Tensor, num_keys: int, live_bits) -> None:
-    """Stable sort of a (num_keys + 1, n) block by its key rows, in place."""
-    radix_sort_words([block[i] for i in range(num_keys)], block[num_keys],
+    """Stable sort of a (num_keys [+ 1], n) block by its key rows, in
+    place."""
+    payload = block[num_keys] if block.shape[0] > num_keys else None
+    radix_sort_words([block[i] for i in range(num_keys)], payload,
                      live_bits)
 
 
@@ -60,9 +64,9 @@ def block_bitonic_sort(blocks: list[torch.Tensor], num_keys: int,
     per key). Returns new blocks; concatenated in shard order along dim
     1 they are sorted by the keys. The inputs are left as they were."""
     n_shards = len(blocks)
-    if blocks[0].shape[0] != num_keys + 1:
-        raise ValueError(f"blocks need {num_keys} key rows and one payload "
-                         f"row, got {blocks[0].shape[0]} rows")
+    if blocks[0].shape[0] not in (num_keys, num_keys + 1):
+        raise ValueError(f"blocks need {num_keys} key rows and at most one "
+                         f"payload row, got {blocks[0].shape[0]} rows")
     blocks = [b.clone() for b in blocks]
     for b in blocks:
         _sort_rows(b, num_keys, live_bits)

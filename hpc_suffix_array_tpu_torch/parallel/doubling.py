@@ -20,10 +20,13 @@ The text is padded to ``padded_length(n, P)`` with pad bytes whose code
 is 0, below every real byte's code (1..K), so the pad suffixes sort
 first and the real suffix array is the tail of the padded one. The
 suffix array is unique, so the output equals the JAX package's, the
-single-device builder's and SA-IS's at any n and P. The JAX package's
-MSD gates (``SA_SHARDED_MSD_MIN``, ``SA_SHARDED_CHAIN_MIN``) lead to its
-sharded carried-keys builder, which this package does not have yet: every
-text takes the doubling loop (``info["path"]`` "sharded_doubling").
+single-device builder's and SA-IS's at any n and P.
+
+``build_suffix_array_sharded`` first tries the sharded carried-keys
+builder (``parallel/bigsort.py``) behind the JAX package's gates
+(``SA_SHARDED_MSD_MIN``, ``SA_SHARDED_CHAIN_MIN``): ``info["path"]``
+"sharded_msd"; texts it refuses, and the rest, take the doubling loop
+("sharded_doubling").
 """
 
 from __future__ import annotations
@@ -133,19 +136,38 @@ def suffix_array_kernel_sharded(rank0: list[torch.Tensor], k0: int):
 
 
 def build_suffix_array_sharded(text, mesh: Mesh | None = None,
-                               info: dict | None = None) -> torch.Tensor:
+                               info: dict | None = None,
+                               msd: bool | None = None) -> torch.Tensor:
     """Suffix array int32[n] of ``text`` (str, bytes, uint8 array or
     tensor), built block-sharded over ``mesh`` (default: one shard per
     visible card), returned whole on the mesh's first device.
 
-    ``info``: optional dict that receives ``path`` ("sharded_doubling")
-    and ``rounds``. Raises ValueError when the padded length reaches
-    2^31."""
+    Texts from ``SA_SHARDED_MSD_MIN`` bytes (4 MiB), and deep-repeat
+    texts from ``SA_SHARDED_CHAIN_MIN`` (64 KiB), first try the
+    carried-keys builder; where it raises NotImplementedError the
+    doubling loop builds them. ``msd`` forces (True) or skips (False)
+    that attempt: a caller whose own attempt was just refused passes
+    False. ``info``: optional dict that receives ``path``
+    ("sharded_msd" or "sharded_doubling") and the builder's keys
+    (``rounds``; ``chain_mode``, ``n_words``, ``msd_sorts``). Raises
+    ValueError when the padded length reaches 2^31."""
     mesh = make_mesh() if mesh is None else mesh
     n = text_length(text)
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=mesh.devices[0])
-    n_pad = padded_length(n, mesh.size)
+    n_pad = padded_length(n, mesh.size)     # raises before allocating
+    from hpc_suffix_array_tpu_torch.parallel import bigsort
+
+    if bigsort.try_carried_keys(text, n) if msd is None else msd:
+        try:
+            sa = bigsort.build_suffix_array_sharded_big(text, mesh,
+                                                        info=info)
+        except NotImplementedError:
+            pass                     # irregular ties: doubling takes them
+        else:
+            if info is not None:
+                info["path"] = "sharded_msd"
+            return sa
     if isinstance(text, torch.Tensor):
         remap, bits, h0 = alphabet_remap_dev(text.to(torch.uint8))
     else:

@@ -16,16 +16,19 @@ jumping) with every array block-sharded over the mesh:
     a round (``read_scalar``);
   * the permute back to SA order is one more ring gather, and lcp[0] = 0.
 
-The output equals ``core/lcp.py``'s and Kasai's on the real text. The
-JAX package re-routes texts above ``SA_LCP_BIG_MIN`` to its sharded
-carried-keys rebuild, which this package does not have yet: every text
-takes the PLCP rounds here.
+The output equals ``core/lcp.py``'s and Kasai's on the real text. As
+in the JAX package, texts above ``SA_LCP_BIG_MIN`` whose residue fits
+the mesh's extraction caps are rebuilt by the sharded carried-keys
+builder with ``want_lcp`` (``parallel/bigsort.py``); the PLCP rounds
+take what it refuses, and the rest.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hpc_suffix_array_tpu_torch.core.lcp import lcp_big_min
+from hpc_suffix_array_tpu_torch.core.suffix_array import as_byte_array
 from hpc_suffix_array_tpu_torch.parallel.doubling import (
     padded_shards, text_length)
 from hpc_suffix_array_tpu_torch.parallel.gather import (
@@ -154,12 +157,31 @@ def build_lcp_array_sharded(text, sa, mesh: Mesh | None = None,
     Positions are padded as the sharded builder pads them: the pad
     suffixes occupy the head of the padded SA in descending position
     order, so real SA neighbours stay adjacent. ``info``: optional dict
-    that receives ``plcp_rounds``."""
+    that receives ``plcp_rounds``.
+
+    Above ``SA_LCP_BIG_MIN`` (8 MiB) and below 2^31 - 1, a text whose
+    residue is feasible at ``P * RESIDUE_SLOTS / 4`` takes the LCP of a
+    carried-keys rebuild instead (the SA is unique, so ``sa`` is not
+    read); a refusal comes back here."""
     mesh = make_mesh() if mesh is None else mesh
     n = text_length(text)
     dev0 = mesh.devices[0]
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev0)
+    if lcp_big_min() < n < (1 << 31) - 1:
+        from hpc_suffix_array_tpu_torch.core.bigsort import (
+            RESIDUE_SLOTS, residue_feasible)
+        from hpc_suffix_array_tpu_torch.parallel.bigsort import (
+            build_suffix_array_sharded_big)
+
+        # The per-shard residue caps scale with the mesh size.
+        if residue_feasible(as_byte_array(text), n,
+                            mesh.size * RESIDUE_SLOTS / 4):
+            try:
+                return build_suffix_array_sharded_big(text, mesh,
+                                                      want_lcp=True)[1]
+            except NotImplementedError:
+                pass                 # degenerate: PLCP handles any skew
     n_pad = padded_length(n, mesh.size)
     nc = chunk_count(n_pad // mesh.size)
     texts = padded_shards(text, n_pad, mesh)

@@ -15,8 +15,8 @@ every array along one sequence axis of a ``jax.sharding.Mesh``; here
     once per shard in a host loop;
   * the collectives below are the only place where data crosses shards,
     with ``lax``'s semantics: ``ppermute`` (a destination missing from
-    ``perm`` gets zeros), ``all_gather``, ``psum``, ``pmax`` and
-    ``all_to_all`` (``tiled=True`` on axis 0).
+    ``perm`` gets zeros), ``all_gather``, ``psum``, ``pmax``, ``pmin``
+    and ``all_to_all`` (``tiled=True`` on axis 0).
 
 **Received tensors are read-only.** Where source and destination sit on
 one device, ``ppermute`` hands over the source tensor itself (a ring
@@ -163,6 +163,11 @@ def pmax(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return _reduce(xs, torch.amax)
 
 
+def pmin(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``lax.pmin``: the elementwise min over shards, on every shard."""
+    return _reduce(xs, torch.amin)
+
+
 def all_to_all(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """``lax.all_to_all(x, axis, 0, 0, tiled=True)`` for x of shape
     (P, ...): shard ``me`` receives row ``me`` of every shard, stacked in
@@ -172,10 +177,12 @@ def all_to_all(xs: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def read_scalar(t: torch.Tensor):
-    """Host value of a 0-d tensor: the one device-to-host read of a
-    sharded loop's round. Adds one to ``read_scalar.reads``."""
+    """Host value of a 0-d tensor (a Python number) or of a short 1-d
+    tensor (a list): the one device-to-host read of a sharded loop's
+    round, or of a build attempt's stats. Adds one to
+    ``read_scalar.reads``."""
     read_scalar.reads += 1
-    return t.item()
+    return t.tolist()
 
 
 read_scalar.reads = 0

@@ -547,12 +547,16 @@ def test_run_benchmark_sharded_matches_single(monkeypatch):
     single = ttiming.run_benchmark(text, device="cpu", validate=True,
                                    warmup=False)
     mesh = tpar.make_mesh(4, devices=["cpu"])
-    for msd_min, calls in ((str(1 << 13), 1), (str((1 << 13) + 1), 1)):
+    # At SA_SHARDED_MSD_MIN the fused router takes the carried keys, as
+    # the JAX package's does; one byte above the minimum, doubling.
+    for msd_min, calls, builder in ((str(1 << 13), 1, "sharded_msd"),
+                                    (str((1 << 13) + 1), 1,
+                                     "sharded_doubling")):
         monkeypatch.setenv("SA_SHARDED_MSD_MIN", msd_min)
         r = ttiming.run_benchmark(text, validate=True, warmup=False,
                                   mesh=mesh)
         assert (r.implementation, r.builder, r.valid) == (
-            "torch_cpu_sharded", "sharded_doubling", True)
+            "torch_cpu_sharded", builder, True)
         assert r.lrs_length == single.lrs_length
         assert len(fused) == calls
 

@@ -174,8 +174,11 @@ def test_sharded_main_on_file_matches_jax_cli(tmp_path, capsys, devices):
 
 def test_sharded_run_fused_route(monkeypatch):
     """Above SA_SHARDED_MSD_MIN the sharded SA phase builds SA and LCP
-    together (build_sa_lcp_sharded); the report matches the
+    together (build_sa_lcp_sharded: one carried-keys sort, the JAX
+    package's path on the same text); the report matches the
     single-device backend's apart from times, path and processes."""
+    from hpc_suffix_array_tpu import parallel as jpar
+
     monkeypatch.setenv("SA_SHARDED_MSD_MIN", "1000")
     text = np.random.default_rng(2).integers(97, 101, 5000).astype(np.uint8)
     got, single = io.StringIO(), io.StringIO()
@@ -186,8 +189,11 @@ def test_sharded_run_fused_route(monkeypatch):
     ref: dict = {}
     cli.run(text, "fused.txt", "cpu", validate=True, dialect="sequential",
             out=single, arrays=ref)
-    assert res["path"] == "sharded_doubling" and res["processes"] == 2
-    assert res["valid"] is True and res["plcp_rounds"] >= 1
+    j_info: dict = {}
+    jpar.build_sa_lcp_sharded(text, jpar.make_mesh(2), info=j_info)
+    assert res["path"] == j_info["path"] == "sharded_msd"
+    assert res["processes"] == 2
+    assert res["valid"] is True and res["plcp_rounds"] == 0
     assert torch.equal(arrays["sa"], ref["sa"])
     assert torch.equal(arrays["lcp"], ref["lcp"])
     keep = [ln for ln in _sharded_comparable(got.getvalue())

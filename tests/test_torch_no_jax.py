@@ -34,6 +34,7 @@ assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
 sa, lcp = tsa.build_sa_lcp(b"banana", device="cpu")
 assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
 import hpc_suffix_array_tpu_torch.parallel as par
+import hpc_suffix_array_tpu_torch.parallel.bigsort
 import hpc_suffix_array_tpu_torch.parallel.bitonic
 import hpc_suffix_array_tpu_torch.parallel.gather
 import hpc_suffix_array_tpu_torch.parallel.rerank
@@ -44,6 +45,9 @@ sa, lcp = par.build_sa_lcp_sharded(b"mississippi", mesh)
 assert sa.tolist() == [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2], sa
 assert lcp.tolist() == [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3], lcp
 assert par.is_valid_suffix_array_sharded(b"mississippi", sa, mesh)
+sa, lcp = par.build_suffix_array_sharded_big(b"mississippi" * 20, mesh,
+                                             want_lcp=True)
+assert sa[:4].tolist() == [219, 208, 197, 186], sa
 assert cli.main(["banana", "--device", "cpu", "--backend", "sharded",
                  "--devices", "2"]) == 0
 import tempfile

@@ -77,11 +77,12 @@ Drives the port's main paths on the card and checks them:
  12. the sharded backend (parallel/), every shard on the one card: (a)
      build_suffix_array_sharded, build_lcp_array_sharded and
      is_valid_suffix_array_sharded on the four corpora of phase 4 at
-     2^24 with P = 1, 2, 4 and 8 shards, twice: on the default routes
-     (alnum, DNA and p1000 on the carried-keys builder, PATH sharded_msd,
-     whose LCP the reroute above 8 MiB rebuilds; words may be refused
-     and fall back to doubling) and with msd=False (the doubling builder
-     and the distributed PLCP); against the SA-IS and Kasai arrays of
+     2^24 with P = 1, 2, 4 and 8 shards on the default routes (alnum,
+     DNA and p1000 on the carried-keys builder, PATH sharded_msd, whose
+     LCP the reroute above 8 MiB rebuilds; words may be refused and fall
+     back to doubling) and, with P = 1 and 4, also with msd=False (the
+     doubling builder and the distributed PLCP); against the SA-IS and
+     Kasai arrays of
      phase 4, the validator rejecting a swapped pair and a duplicated
      entry, K1 launched exactly P times per carried-keys sort
      (pack_words) and per doubling build (pack_ranks), the onesweep sort
@@ -96,9 +97,29 @@ Drives the port's main paths on the card and checks them:
      parallel_results.csv with the harness's columns; (d)
      build_sa_lcp_sharded at 2^28 p1000 on 4 shards, in chain mode, byte
      for byte against phase 6's single-device arrays, timed, with its
-     peak. The phase's wall time is printed.
+     peak. The phase's wall time is printed;
+ 13. the multi-process path (cli_distributed.py, parallel/multihost.py,
+     the _mp entry of parallel/bigsort.py), its workers started after
+     the kernels are built, so they only load them: (a) the launcher
+     ``--spawn 1 --devices-per-process 4`` on NCCL (a process group of
+     one, four shards) on a 2^28 random alnum file holding phase 5's
+     text: PATH:sharded_msd_mp, valid YES, the LRS of phase 5's arrays,
+     and the worker's SA and LCP shards byte for byte equal to phase
+     5's; (a') the library entry ``build_suffix_array_sharded_big_mp``
+     in the same geometry through ``bench/weak_scaling_worker.py``: its
+     shards equal to phase 5's arrays, and its launches equal to
+     [12b]'s; (b) 2 processes x 2 shards sharing the card on gloo
+     (``SA_PG_BACKEND=gloo``): 2^26 random alnum and 2^26 p1000 (chain
+     mode) on PATH:sharded_msd_mp, byte for byte equal to the
+     single-process sharded build of the same text, and 2^22 words,
+     refused and built by PATH:sharded_doubling, equal to SA-IS and
+     Kasai; (c) the weak-scaling runner (``bench/weak_scaling.py``) at
+     2^24 bytes per shard, P = 1, 2, 4, 8 for its four builders and the
+     two-process point, its CSV read back. Each worker resets and reports
+     its own launch counts and peak; the workers' counts are summed. A
+     worker that fails fails the smoke.
 
-Phases 10, 11 and 12 write under build/smoke.
+Phases 10 to 13 write under build/smoke.
 
 The K1 launches of the CLI runs are checked exactly: one (two key
 words) for 2^28 alnum, two (three key words, then the pair table) for
@@ -110,8 +131,9 @@ the last is a JSON summary of the kernels, each row's ``launches`` read
 from the words run of phase 7 (K2 and K3 read 0 there: the sort no
 longer runs them; their ``check_launches`` are those of the one K2 +
 glue + K3 pass of phase 3 that is held against the onesweep pass) and
-its ``harness_launches`` from the twin sweep of phase 10 and its
-``sharded_launches`` from the sharded CLI run of phase 12b, with
+its ``harness_launches`` from the twin sweep of phase 10, its
+``sharded_launches`` from the sharded CLI run of phase 12b and its
+``mp_launches`` from the multi-process CLI run of phase 13a, with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -145,8 +167,12 @@ from hpc_suffix_array_tpu_torch.bench.harness import _twin_for_file
 from hpc_suffix_array_tpu_torch.bench.micro import CSV_HEADER
 from hpc_suffix_array_tpu_torch.bench import mesh_sweep
 from hpc_suffix_array_tpu_torch.bench.parse import parse_structured_results
+from hpc_suffix_array_tpu_torch.bench import weak_scaling
 from hpc_suffix_array_tpu_torch.cli import main as cli_main
+from hpc_suffix_array_tpu_torch.cli import parse_args as cli_parse_args
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
+from hpc_suffix_array_tpu_torch.cli_distributed import (
+    run_distributed, run_workers, spawn)
 from hpc_suffix_array_tpu_torch.core.bigsort import (
     build_suffix_array_big, direct_keys)
 from hpc_suffix_array_tpu_torch.core.lcp import (
@@ -160,7 +186,8 @@ from hpc_suffix_array_tpu_torch.datasets import (
     device_random_text, generate_dna_text, generate_random_text,
     generate_repetitive_text, generate_standard_datasets,
     generate_words_text)
-from hpc_suffix_array_tpu_torch.kernels import _build
+from hpc_suffix_array_tpu_torch.kernels import (
+    _build, launch_counts, reset_launch_counts)
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
@@ -214,9 +241,21 @@ REFINE_KEYS = ("refine_members", "refine_pieces", "refine_rounds",
 # Phase 12, the sharded backend: the meshes (all on the one card) at
 # 2^24, the full-size CLI run's mesh, and the mesh sweep's corpus size.
 SHARDS = (1, 2, 4, 8)
+# The meshes of [12a] that also run the doubling builder and the
+# distributed PLCP (msd=False), the slowest of the phase's routes.
+PLCP_SHARDS = (1, 4)
 SHARDED_N = 1 << 24
 SHARDED_P = 4
 SWEEP_MB = 16
+# Phase 13, the multi-process path: shards per process of the NCCL run,
+# the gloo runs' text sizes, and the weak-scaling runner's bytes per
+# shard.
+MP_DPP = 4
+MP_N = 1 << 26
+MP_WORDS_N = 1 << 22
+WEAK_BYTES = 1 << 24
+WEAK_BUILDERS = {"msd": 4, "msd_lcp": 4, "msd_wide": 4, "doubling": 4,
+                 "msd_2proc": 2}
 CORPORA = (("random alnum", generate_random_text),
            ("DNA", generate_dna_text),
            ("repetitive p1000", generate_repetitive_text),
@@ -635,20 +674,14 @@ def check_corpus(name: str, text: np.ndarray):
 
 MAIN_PATH_KERNELS = ("pack_words", "digit_histograms", "onesweep_pass")
 SPLIT_PASS_KERNELS = ("block_digit_sort", "place_runs")
-COUNTED = {"pack_ranks": pack_ranks, "pack_words": pack_words,
-           "digit_histograms": digit_histograms,
-           "onesweep_pass": onesweep_pass,
-           "block_digit_sort": block_digit_sort, "place_runs": place_runs}
 
 
 def reset_launches() -> None:
-    for fn in COUNTED.values():
-        fn.launches = 0
+    reset_launch_counts()
     radix_sort_words.passes_run = radix_sort_words.passes_skipped = 0
 
 
-def launches() -> dict:
-    return {k: fn.launches for k, fn in COUNTED.items()}
+launches = launch_counts
 
 
 def passes() -> dict:
@@ -1192,6 +1225,247 @@ def sharded_sweep(card: str) -> None:
           f"builder_mismatch {[r['builder_mismatch'] for r in par]}")
 
 
+def mp_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --mp-worker OUT ARGS...``: one worker of the
+    multi-process CLI (``cli_distributed.run_distributed`` on the CLI's
+    ARGS), with its launch counts set to 0 just before and read just
+    after. Writes ``OUT/rank<r>.json`` (the results, its launches and
+    peak) and its local shards of the padded SA and LCP as
+    ``OUT/sa.<shard>.npy`` and ``OUT/lcp.<shard>.npy``."""
+    out = pathlib.Path(argv[0])
+    args = cli_parse_args(argv[1:])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    arrays: dict = {}
+    rc = run_distributed(args, arrays)
+    counts = sharded_counts()
+    for me, (sa, lcp) in enumerate(zip(arrays["sa"], arrays["lcp"])):
+        if sa is not None:
+            np.save(out / f"sa.{me}.npy", sa.cpu().numpy())
+            np.save(out / f"lcp.{me}.npy", lcp.cpu().numpy())
+    (out / f"rank{args.process_id}.json").write_text(json.dumps({
+        "results": arrays["results"], "launches": counts,
+        "peak_bytes": torch.cuda.max_memory_allocated()}))
+    return rc
+
+
+def fresh_dir(path: pathlib.Path) -> pathlib.Path:
+    if path.exists():
+        for f in path.iterdir():
+            f.unlink()
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def joined(out: pathlib.Path, col: str, n_shards: int) -> np.ndarray:
+    return np.concatenate([np.load(out / f"{col}.{i}.npy")
+                           for i in range(n_shards)])
+
+
+def summed(ranks: list[dict]) -> dict:
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def mp_cli(tag: str, path: pathlib.Path, n_proc: int, dpp: int,
+           gloo: bool) -> dict:
+    """The launcher ``--spawn n_proc --devices-per-process dpp`` on
+    ``path``, each worker this script's ``--mp-worker``; fails if the
+    launch fails. Returns process 0's report and parsed MPI block, the
+    ranks' reports, the joined padded SA and LCP and the summed
+    launches."""
+    out = fresh_dir(OUT_DIR / "mp" / tag)
+    args = cli_parse_args([str(path), "--spawn", str(n_proc),
+                           "--devices-per-process", str(dpp)])
+    worker = [sys.executable, str(pathlib.Path(__file__).resolve()),
+              "--mp-worker", str(out)]
+    log = out / "stdout.txt"
+    with env(**({"SA_PG_BACKEND": "gloo"} if gloo else {})), \
+            open(log, "w") as f:
+        rc = spawn(args, worker=worker, stdout=f)
+    report = log.read_text()
+    if rc:
+        raise AssertionError(f"[13] {tag}: the launch exited {rc}:\n"
+                             + report[-3000:])
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(n_proc)]
+    n_shards = n_proc * dpp
+    return {"report": report, "mpi": parse_structured_results(report),
+            "ranks": ranks, "sa": joined(out, "sa", n_shards),
+            "lcp": joined(out, "lcp", n_shards), "launches": summed(ranks),
+            "peak_gib": max(r["peak_bytes"] for r in ranks) / 2**30}
+
+
+def check_mp_arrays(tag: str, got: dict, n: int, want_sa: np.ndarray,
+                    want_lcp: np.ndarray) -> None:
+    """Rows [0, n) of the joined padded arrays equal the reference, pad
+    rows hold n (SA) and 0 (LCP)."""
+    sa, lcp = got["sa"], got["lcp"]
+    if not (np.array_equal(sa[:n], want_sa)
+            and np.array_equal(lcp[:n], want_lcp)):
+        raise AssertionError(f"[13] {tag}: SA or LCP differs from the "
+                             "reference")
+    if not ((sa[n:] == n).all() and (lcp[n:] == 0).all()):
+        raise AssertionError(f"[13] {tag}: pad rows are not n / 0")
+
+
+def check_mp_report(tag: str, got: dict, path: str, n_proc: int) -> None:
+    report, mpi = got["report"], got["mpi"]
+    if ("Valid suffix array: YES" not in report
+            or mpi.get("path") != path
+            or mpi.get("mpi_processes") != n_proc
+            or report.count("--- STRUCTURED_RESULTS ---") != 1):
+        raise AssertionError(f"[13] {tag}: expected valid YES, PATH:{path}"
+                             f", MPI_PROCESSES:{n_proc}:\n{report[-3000:]}")
+
+
+def mp_nccl(text: np.ndarray, ref: dict, want_counts: dict,
+            card: str) -> dict:
+    """[13a] the launcher, 1 process x MP_DPP shards on NCCL, on a file
+    holding ``text`` (phase 5's); [13a'] the library entry in the same
+    geometry. Returns [13a]'s summed launches."""
+    n = len(text)
+    path = OUT_DIR / "data" / "alnum_2^28.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    text.tofile(path)
+    want_sa, want_lcp = ref["sa"].numpy(), ref["lcp"].numpy()
+    lrs = find_longest_repeated_substring(
+        text, ref["sa"].cuda(), ref["lcp"].cuda(), device="cuda")
+    torch.cuda.empty_cache()
+    got = mp_cli("13a", path, 1, MP_DPP, gloo=False)
+    check_mp_report("13a", got, "sharded_msd_mp", 1)
+    line = (f"Longest repeated substring: '{lrs.decode()}' (length: "
+            f"{len(lrs)})")
+    if line not in got["report"]:
+        raise AssertionError(f"[13a] the LRS is not phase 5's {line!r}")
+    if "process group: backend nccl" not in got["report"]:
+        raise AssertionError("[13a] did not run on NCCL")
+    check_mp_arrays("13a", got, n, want_sa, want_lcp)
+    check_mp_launches("13a", got["launches"], want_counts)
+    cli_counts = got["launches"]
+    phase(f"[13a] --spawn 1 --devices-per-process {MP_DPP} (NCCL) n=2^28 "
+          f"random alnum file: Valid suffix array: YES; "
+          f"PATH:{got['mpi']['path']}; LRS == phase 5's; SA and LCP == "
+          f"phase 5's, byte for byte; SA_TIME {got['mpi']['sa_time']:.3f} "
+          f"s, LCP_TIME {got['mpi']['lcp_time']:.3f} s, TOTAL_TIME "
+          f"{got['mpi']['total_time']:.3f} s; peak {got['peak_gib']:.2f} "
+          f"GiB; launches {json.dumps(got['launches'])} ({card})")
+    del got
+    # [13a'] the library entry, 1 process x MP_DPP shards, NCCL.
+    out = fresh_dir(OUT_DIR / "mp" / "13a_lib")
+    worker = pathlib.Path(weak_scaling.__file__).with_name(
+        "weak_scaling_worker.py")
+    store = out.resolve() / "pg_store"
+    log = out / "stdout.txt"
+    with open(log, "w") as f:
+        rc = run_workers([[sys.executable, str(worker), "0", "1",
+                           f"file://{store}", str(n // MP_DPP), str(MP_DPP),
+                           "--device", "cuda", "--corpus", "random",
+                           "--seed", str(SEED), "--lcp", "--out", str(out)]],
+                         stdout=f, timeout=600)
+    if rc:
+        raise AssertionError(f"[13a'] the worker exited {rc}:\n"
+                             + log.read_text()[-3000:])
+    ranks = [json.loads((out / "rank0.json").read_text())]
+    lib = {"sa": joined(out, "sa", MP_DPP), "lcp": joined(out, "lcp",
+                                                         MP_DPP)}
+    check_mp_arrays("13a'", lib, n, want_sa, want_lcp)
+    counts = summed(ranks)
+    check_mp_launches("13a'", counts, want_counts)
+    phase(f"[13a'] build_suffix_array_sharded_big_mp, 1 process x {MP_DPP} "
+          f"shards (NCCL), n=2^28 random alnum: SA and LCP == phase 5's, "
+          f"byte for byte; SA_TIME (SA+LCP, warm) {ranks[0]['sa_time']:.3f} "
+          f"s; peak {ranks[0]['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{json.dumps(counts)} ({card})")
+    return cli_counts
+
+
+def check_mp_launches(tag: str, counts: dict, want: dict) -> None:
+    """The kernels' launches equal the single-process run's ([12b])."""
+    keys = ("pack_words", "pack_ranks", "digit_histograms", "onesweep_pass",
+            "block_digit_sort", "place_runs")
+    if any(counts[k] != want[k] for k in keys):
+        raise AssertionError(f"[13] {tag}: launches {counts}, not [12b]'s "
+                             f"{ {k: want[k] for k in keys} }")
+
+
+def mp_gloo(card: str) -> None:
+    """[13b] 2 processes x 2 shards sharing the card on gloo."""
+    mesh = make_mesh(4, devices=["cuda:0"])
+    for name, gen in (("random alnum", generate_random_text),
+                      ("repetitive p1000", generate_repetitive_text)):
+        text = gen(MP_N, SEED)
+        info: dict = {}
+        sa, lcp = build_sa_lcp_sharded(as_byte_tensor(text, "cuda"), mesh,
+                                       info=info)
+        want = (sa.cpu().numpy(), lcp.cpu().numpy())
+        del sa, lcp
+        torch.cuda.empty_cache()
+        path = OUT_DIR / "data" / f"mp_{name.split()[0]}_2^26.txt"
+        text.tofile(path)
+        got = mp_cli(f"13b_{name.split()[0]}", path, 2, 2, gloo=True)
+        check_mp_report(f"13b {name}", got, "sharded_msd_mp", 2)
+        check_mp_arrays(f"13b {name}", got, MP_N, *want)
+        phase(f"[13b] --spawn 2 --devices-per-process 2 (gloo, one card) "
+              f"n=2^26 {name}: Valid suffix array: YES; "
+              f"PATH:{got['mpi']['path']}; SA and LCP == the single-process "
+              f"sharded build's ({info['path']}, chain_mode "
+              f"{info.get('chain_mode')}), byte for byte; SA_TIME "
+              f"{got['mpi']['sa_time']:.3f} s, TOTAL_TIME "
+              f"{got['mpi']['total_time']:.3f} s; peak {got['peak_gib']:.2f} "
+              f"GiB (per process, max); launches "
+              f"{json.dumps(got['launches'])} ({card})")
+    text = generate_words_text(MP_WORDS_N, SEED)
+    want_sa = native.sa_build(text)
+    want_lcp = native.lcp_kasai(text, want_sa)
+    path = OUT_DIR / "data" / "mp_words_2^22.txt"
+    text.tofile(path)
+    got = mp_cli("13b_words", path, 2, 2, gloo=True)
+    check_mp_report("13b words", got, "sharded_doubling", 2)
+    check_mp_arrays("13b words", got, MP_WORDS_N, want_sa, want_lcp)
+    phase(f"[13b] --spawn 2 --devices-per-process 2 (gloo, one card) "
+          f"n=2^22 words: refused by the carried keys, Valid suffix array: "
+          f"YES; PATH:{got['mpi']['path']}; SA == SA-IS, LCP == Kasai; "
+          f"SA_TIME {got['mpi']['sa_time']:.3f} s, TOTAL_TIME "
+          f"{got['mpi']['total_time']:.3f} s; peak {got['peak_gib']:.2f} "
+          f"GiB; launches {json.dumps(got['launches'])} ({card})")
+
+
+def mp_weak(card: str) -> None:
+    """[13c] the weak-scaling runner at WEAK_BYTES per shard on the card;
+    its CSV read back."""
+    out = OUT_DIR / "weak"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = weak_scaling.main(WEAK_BYTES, out_dir=out, device="cuda",
+                             charts=False, verbose=False)
+    dt = time.perf_counter() - t0
+    counts = sharded_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(out / "weak_scaling.csv", newline="") as f:
+        back = list(csv.DictReader(f))
+    per = {b: [r for r in back if r["builder"] == b] for b in WEAK_BUILDERS}
+    if (len(back) != len(rows)
+            or any(len(per[b]) != k for b, k in WEAK_BUILDERS.items())
+            or any(r["success"] != "True" for r in back)):
+        raise AssertionError(f"[13c] weak_scaling.csv: {back}")
+    for b, rs in per.items():
+        phase(f"[13c] weak scaling {b}, {WEAK_BYTES >> 20} MiB per shard, "
+              f"P {[int(r['processes']) for r in rs]} "
+              f"({rs[0]['scaling_mode']}): sa_time s "
+              f"{[float(r['sa_time']) for r in rs]}, P*t1/tP "
+              f"{[round(float(r['weak_efficiency_normalized']), 4) for r in rs]}"
+              + (f", peak GiB {[int(r['peak_bytes']) / 2**30 for r in rs]}, "
+                 f"launches {[r['launches'] for r in rs]}"
+                 if b == "msd_2proc" else "") + f" ({card})")
+    phase(f"[13c] the runner, {dt:.1f} s: in this process (the one-process "
+          f"builders, each P a warm-up and a timed run) peak "
+          f"{peak / 2**30:.2f} GiB, launches {json.dumps(counts)}; the "
+          f"msd_2proc workers' own are in their rows ({card})")
+
+
 def main() -> int:
     # 1) device
     if not torch.cuda.is_available():
@@ -1428,16 +1702,25 @@ def main() -> int:
     for name, gen in CORPORA:
         text = gen(SHARDED_N, SEED)
         for p in SHARDS:
-            for msd in (None, False):
+            for msd in (None, False) if p in PLCP_SHARDS else (None,):
                 sharded_corpus(name, text, *oracles[name], p, card, msd)
     sharded_launches = sharded_cli(*sharded_ref, card)
-    del sharded_ref
     torch.cuda.empty_cache()
     sharded_sweep(card)
     sharded_chain(*chain_ref, card)
     del chain_ref
     torch.cuda.empty_cache()
     phase(f"[12] sharded backend: {time.perf_counter() - t12:.1f} s")
+
+    # 13) the multi-process path; the kernels are built, the workers load
+    t13 = time.perf_counter()
+    mp_launches = mp_nccl(*sharded_ref, sharded_launches, card)
+    del sharded_ref
+    torch.cuda.empty_cache()
+    mp_gloo(card)
+    torch.cuda.empty_cache()
+    mp_weak(card)
+    phase(f"[13] multi-process path: {time.perf_counter() - t13:.1f} s")
 
     n = FULL_N
     tiles = n // 4096
@@ -1450,6 +1733,7 @@ def main() -> int:
                               + harness_counts["pack_words"]),
          "sharded_launches": (sharded_launches["pack_ranks"]
                               + sharded_launches["pack_words"]),
+         "mp_launches": mp_launches["pack_ranks"] + mp_launches["pack_words"],
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
          "ms": k1["word1"]["ms"], "plain_ms": k1["word1"]["plain_ms"],
          **k1_bound(k1["word1"]),
@@ -1462,6 +1746,7 @@ def main() -> int:
          "launches": words_counts["digit_histograms"],
          "harness_launches": harness_counts["digit_histograms"],
          "sharded_launches": sharded_launches["digit_histograms"],
+         "mp_launches": mp_launches["digit_histograms"],
          "max_abs_err": max(os_err["hist"], srt["hist_err"]),
          "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"],
          **bound(2 * 4 * n + 8 * 256 * 4, 4 * 8 * n)},
@@ -1471,6 +1756,7 @@ def main() -> int:
          "launches": words_counts["onesweep_pass"],
          "harness_launches": harness_counts["onesweep_pass"],
          "sharded_launches": sharded_launches["onesweep_pass"],
+         "mp_launches": mp_launches["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
          "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
          **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
@@ -1480,6 +1766,7 @@ def main() -> int:
          "launches": words_counts["block_digit_sort"],
          "harness_launches": harness_counts["block_digit_sort"],
          "sharded_launches": sharded_launches["block_digit_sort"],
+         "mp_launches": mp_launches["block_digit_sort"],
          "check_launches": one[3]["k23_launches"]["block_digit_sort"],
          "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
@@ -1490,6 +1777,7 @@ def main() -> int:
          "launches": words_counts["place_runs"],
          "harness_launches": harness_counts["place_runs"],
          "sharded_launches": sharded_launches["place_runs"],
+         "mp_launches": mp_launches["place_runs"],
          "check_launches": one[3]["k23_launches"]["place_runs"],
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
@@ -1502,4 +1790,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2:]))
     sys.exit(main())

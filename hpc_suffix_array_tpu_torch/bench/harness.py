@@ -12,7 +12,10 @@ boundary for external consumers (``bench/parse.py``).
 
 Integer mesh sizes run the sharded backend (``parallel/``) and write
 ``parallel_results.csv`` with speedup and efficiency against the same
-run's single-device rows. The weak-scaling sweeps are not here yet.
+run's single-device rows. ``weak_scaling_proxy`` sweeps P with n = P x
+bytes per shard (``bench/weak_scaling.py`` drives it); on one card
+every shard shares the card, so its rows measure the sharded
+algorithm's overhead, never an interconnect.
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ from datetime import datetime
 
 import torch
 
-from hpc_suffix_array_tpu_torch.bench.timing import run_benchmark
+from hpc_suffix_array_tpu_torch.bench.timing import (
+    BenchmarkResult, run_benchmark)
 from hpc_suffix_array_tpu_torch.cli import implementation_name
-from hpc_suffix_array_tpu_torch.device import resolve_device
+from hpc_suffix_array_tpu_torch.device import resolve_device, synchronize
 from hpc_suffix_array_tpu_torch.utils.io import read_file
 
 MB = 1024 * 1024
@@ -306,3 +310,149 @@ def add_speedup_efficiency(par: list[dict], seq: list[dict]) -> list[dict]:
             != str(sb).replace("sharded_", ""))
         out.append(r)
     return out
+
+
+def weak_scale_mode(device) -> str:
+    """The ``scaling_mode`` of one-process weak-scaling rows: every shard
+    on one card (or the one CPU)."""
+    where = "card" if resolve_device(device).type == "cuda" else "cpu"
+    return f"weak_one_{where}_shards"
+
+
+def weak_scaling_proxy(bytes_per_shard: int = 1 << 20,
+                       mesh_sizes=(1, 2, 4, 8),
+                       results_dir="results/benchmarks",
+                       input_type: str = "random",
+                       builder: str = "auto", device="cuda",
+                       verbose: bool = True) -> list[dict]:
+    """Weak-scaling sweep: n grows with the mesh (n = P * bytes_per_shard),
+    all P shards on ``device``; returns the rows, which also go to
+    ``parallel_results.csv`` (``_append_scaling_rows``).
+
+    The JAX package runs this on a virtual CPU mesh as a proxy for
+    multi-chip scaling. Here the P shards share one card (or the CPU),
+    so the rows measure the sharded algorithm's overhead (the
+    compare-split merges, the collectives, the pad rows), never an
+    interconnect: their ``scaling_mode`` says so (``weak_scale_mode``).
+    Two efficiency columns, as in the JAX package:
+
+    * ``weak_efficiency`` = t(1)/t(P), the hardware definition; with
+      every shard on one device even a perfect program reads near 1/P;
+    * ``weak_efficiency_normalized`` = P*t(1)/t(P), the per-shard time
+      inflation: 1.0 means P shards cost P times one shard's work.
+
+    ``builder`` pins the build path for the whole sweep: "msd" (the
+    carried keys from 0 bytes), "doubling" (never the carried keys),
+    "auto" (the routers' gates), all timed by ``run_benchmark`` (SA,
+    LCP, LRS; one warm-up); or "msd_lcp" (``want_lcp``) and "msd_wide"
+    (``wide_index`` and ``want_lcp``, int64 outputs), which time
+    ``build_suffix_array_sharded_big`` alone."""
+    from hpc_suffix_array_tpu_torch.datasets.generate import (
+        generate_dna_text, generate_random_text, generate_repetitive_text)
+    from hpc_suffix_array_tpu_torch.parallel import make_mesh
+
+    thresholds = {"msd": "0", "doubling": str(1 << 62), "auto": None}
+    big_variants = {"msd_lcp": dict(want_lcp=True),
+                    "msd_wide": dict(wide_index=True, want_lcp=True)}
+    if builder not in thresholds and builder not in big_variants:
+        raise ValueError(f"builder must be one of "
+                         f"{sorted(thresholds) + sorted(big_variants)}")
+    dev = resolve_device(device)
+    gens = {"random": generate_random_text,
+            "repetitive": generate_repetitive_text,
+            "dna": generate_dna_text}
+    rows = []
+    t1 = None
+    for p in mesh_sizes:
+        n = bytes_per_shard * p
+        text = gens[input_type](n, seed=42)
+        mesh = make_mesh(p, devices=[dev])
+        label = f"{dev.type}_sharded_{p}"
+        if builder in big_variants:
+            r = _time_big_variant(text, mesh, big_variants[builder], label,
+                                  input_type)
+        else:
+            with _env_value("SA_SHARDED_MSD_MIN", thresholds[builder]):
+                r = run_benchmark(text, label, input_type, mesh=mesh)
+        if t1 is None:
+            t1 = r.sa_time
+        eff = t1 / r.sa_time if r.sa_time > 0 else 0.0
+        eff_n = p * t1 / r.sa_time if r.sa_time > 0 else 0.0
+        if verbose:
+            print(f"weak-scaling[{builder}] P={p} n={n / MB:.1f}MB "
+                  f"sa={r.sa_time:.4f}s eff={eff:.3f} eff_norm={eff_n:.3f}")
+        row = _row_for_file(f"weak_{input_type}_{p}shard", r, label, p,
+                            dev.type)
+        row["scaling_mode"] = weak_scale_mode(dev)
+        row["builder"] = builder
+        row["weak_efficiency"] = eff
+        row["weak_efficiency_normalized"] = eff_n
+        rows.append(row)
+    return _append_scaling_rows(rows, results_dir)
+
+
+@contextlib.contextmanager
+def _env_value(name: str, value: str | None):
+    """``os.environ[name] = value`` for the block (None: left as is)."""
+    old = os.environ.get(name)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if value is not None:
+            if old is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = old
+
+
+def _time_big_variant(text, mesh, kwargs: dict, label: str,
+                      input_type: str) -> BenchmarkResult:
+    """One warm-up and one timed ``build_suffix_array_sharded_big`` (the
+    JAX package's ``_weak_scaling_big_variant``): the fused build is the
+    timed region, so sa_time = total_time and the LCP phase is empty."""
+    from hpc_suffix_array_tpu_torch.parallel.bigsort import (
+        build_suffix_array_sharded_big)
+
+    def run():
+        _fence_tree(build_suffix_array_sharded_big(text, mesh, **kwargs))
+
+    t0 = time.perf_counter()
+    run()
+    warmup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run()
+    dt = time.perf_counter() - t0
+    n = len(text)
+    return BenchmarkResult(
+        implementation=label, input_type=input_type, string_length=n,
+        total_time=dt, sa_time=dt, lcp_time=0.0, lrs_time=0.0,
+        memory_used=3 * n * 4, compile_time=max(0.0, warmup - dt),
+        builder="sharded_msd")
+
+
+def _append_scaling_rows(rows: list[dict], results_dir) -> list[dict]:
+    """``rows`` appended to ``results_dir/parallel_results.csv`` in place
+    of its earlier weak-scaling rows (rows with a ``scaling_mode``);
+    returns the file's rows."""
+    results_dir = pathlib.Path(results_dir)
+    results_dir.mkdir(parents=True, exist_ok=True)
+    out = results_dir / "parallel_results.csv"
+    old = []
+    if out.exists():
+        with open(out, newline="") as f:
+            old = [r for r in csv.DictReader(f) if not r.get("scaling_mode")]
+    allrows = old + rows
+    _write_rows(out, allrows)
+    return allrows
+
+
+def _fence_tree(out) -> None:
+    """Completion fence for a (possibly nested) build output: a device
+    sync of every tensor in it (a sharded array's None slots skipped)."""
+    if isinstance(out, torch.Tensor):
+        synchronize(out.device)
+    elif isinstance(out, (list, tuple)):
+        for x in out:
+            _fence_tree(x)

@@ -22,6 +22,11 @@ backends, ``--backend single`` and ``--backend sharded``):
 ``cuda`` on the card and ``torch_cpu`` on the CPU. ``--trace DIR`` wraps
 the run in ``utils.profiling.device_trace`` and writes ``DIR/trace.json``.
 
+``--distributed`` (one worker of a process group) and ``--spawn P`` (the
+mpirun analog that starts P workers) run the multi-process path of
+``cli_distributed.py``, with ``--processes``, ``--process-id``,
+``--coordinator`` and ``--devices-per-process``.
+
 Run as ``python -m hpc_suffix_array_tpu_torch.cli <file-or-string>``.
 """
 
@@ -44,8 +49,11 @@ def looks_like_file(arg: str) -> bool:
 
 
 def implementation_name(device, backend: str = "single") -> str:
+    """IMPLEMENTATION of a run: ``cuda`` or ``torch_cpu``, suffixed with
+    the backend ("sharded", or "sharded_mp" for the multi-process CLI)
+    unless it is "single"."""
     name = "cuda" if resolve_device(device).type == "cuda" else "torch_cpu"
-    return name + "_sharded" if backend == "sharded" else name
+    return name if backend == "single" else f"{name}_{backend}"
 
 
 def _sync(devices) -> None:
@@ -195,7 +203,10 @@ def _detail_dump(text: np.ndarray, sa: np.ndarray, lcp: np.ndarray, out):
     print(f"\nLCP Array: [{shown}{suffix}]", file=out)
 
 
-def _print_structured(r: dict, dialect: str, out) -> None:
+def _print_structured(r: dict, dialect: str, out,
+                      mpi_path: bool = False) -> None:
+    """The STRUCTURED_RESULTS blocks of ``dialect``; ``mpi_path`` adds the
+    PATH line to the MPI block too (the multi-process CLI's)."""
     if dialect in ("sequential", "both"):
         print("\n===STRUCTURED_RESULTS===", file=out)
         print(f"IMPLEMENTATION:{r['implementation']}", file=out)
@@ -217,12 +228,16 @@ def _print_structured(r: dict, dialect: str, out) -> None:
         print(f"SA_TIME:{r['sa_time']:.6f}", file=out)
         print(f"LCP_TIME:{r['lcp_time']:.6f}", file=out)
         print(f"TOTAL_TIME:{r['total_time']:.6f}", file=out)
+        if mpi_path and r.get("path"):
+            print(f"PATH:{r['path']}", file=out)
         if r.get("rerun"):
             print(f"RERUN:{r['rerun']}", file=out)
         print("--- END_STRUCTURED_RESULTS ---", file=out)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The command line of ``sa-cli-torch`` (its multi-process workers
+    take the same)."""
     p = argparse.ArgumentParser(
         prog="sa-cli-torch",
         description="Suffix array / LCP / LRS on one device or a mesh of "
@@ -244,8 +259,30 @@ def main(argv=None) -> int:
     p.add_argument("--no-validate", action="store_true",
                    help="skip the O(n) self-validation pass")
     p.add_argument("--dialect", choices=["sequential", "mpi", "both"],
-                   default="sequential",
-                   help="STRUCTURED_RESULTS dialect to emit")
+                   default=None,
+                   help="STRUCTURED_RESULTS dialect to emit (default: "
+                        "sequential; mpi under --distributed and --spawn)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process worker: join the process group and "
+                        "build with each process reading only its block "
+                        "of the text")
+    p.add_argument("--spawn", type=int, metavar="P", default=None,
+                   help="launcher (the mpirun analog): start P "
+                        "--distributed workers and wait for them")
+    p.add_argument("--processes", type=int, default=None,
+                   help="process count for --distributed "
+                        "(or SA_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for --distributed "
+                        "(or SA_PROCESS_ID)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the process group's store, served by "
+                        "process 0, or an init URL such as file:///path "
+                        "(or SA_COORDINATOR; --spawn picks a free local "
+                        "port when it is not given)")
+    p.add_argument("--devices-per-process", type=int, default=1,
+                   help="shards per process under --distributed and "
+                        "--spawn (a power of two over all processes)")
     p.add_argument("--string", action="store_true",
                    help="force the argument to be a literal string")
     p.add_argument("--file", dest="force_file", action="store_true",
@@ -253,10 +290,31 @@ def main(argv=None) -> int:
     p.add_argument("--trace", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the run to "
                         "DIR/trace.json")
-    args = p.parse_args(argv)
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """``build_parser``'s arguments, with the dialect's default
+    resolved: mpi under --distributed and --spawn, else sequential."""
+    args = build_parser().parse_args(argv)
+    if args.dialect is None:
+        args.dialect = ("mpi" if args.distributed or args.spawn
+                        else "sequential")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     # Outside the FAILED handler: a missing device is a usage error, not
     # a build failure, and must never turn into a CPU run.
     device = resolve_device(args.device)
+    if args.spawn:
+        from hpc_suffix_array_tpu_torch.cli_distributed import spawn
+        return spawn(args)
+    if args.distributed:
+        from hpc_suffix_array_tpu_torch.cli_distributed import (
+            run_distributed)
+        return run_distributed(args)
     mesh = None
     if args.backend == "sharded":
         from hpc_suffix_array_tpu_torch.parallel import make_mesh

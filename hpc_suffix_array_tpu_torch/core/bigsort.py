@@ -417,13 +417,22 @@ def _suffix_lcp(arr: np.ndarray, a: int, b: int, n: int,
         off += L
 
 
+class ResidueDepthError(Exception):
+    """A residue tie is undecided within a bounded-window text view.
+
+    Raised only by views that cannot read the whole text (the
+    multi-process ``parallel/bigsort.py::_GatheredView``); callers fall
+    back to the doubling builder, which resolves ties of any depth."""
+
+
 class _ArrView:
     """Whole-text accessor for residue resolution.
 
-    fetch(idxs, K) -> int16[len(idxs), K] suffix windows, -1 past the
-    end (a shorter suffix that is a prefix orders first);
-    suffix_less(a, b) / suffix_lcp(a, b): exact order / lcp for the rare
-    pairs equal through the whole RESIDUE_WIN window."""
+    The view contract (shared with ``parallel/bigsort.py::
+    _GatheredView``): fetch(idxs, K) -> int16[len(idxs), K] suffix
+    windows, -1 past the end (a shorter suffix that is a prefix orders
+    first); suffix_less(a, b) / suffix_lcp(a, b): exact order / lcp for
+    the rare pairs equal through the whole RESIDUE_WIN window."""
 
     def __init__(self, arr: np.ndarray, n: int):
         self.arr, self.n = arr, n
@@ -456,8 +465,12 @@ def _resolve_residue_host(arr, slots: np.ndarray,
 
     Vectorized: one RESIDUE_WIN-byte window per member, np.lexsort within
     groups, and the exact comparison only for pairs equal through the
-    whole window."""
-    view = _ArrView(arr, n)
+    whole window.
+
+    ``arr`` is the host text (uint8[n]) or a view with the ``_ArrView``
+    contract: the multi-process build passes one backed by window
+    gathers, so no process needs the whole text."""
+    view = arr if hasattr(arr, "fetch") else _ArrView(arr, n)
     order = np.argsort(slots, kind="stable")
     slots, idxs = slots[order], idxs[order]
     P = len(slots)
@@ -480,6 +493,12 @@ def _resolve_residue_host(arr, slots: np.ndarray,
     if undecided.any():
         run_edges = np.flatnonzero(np.diff(
             np.r_[False, undecided, False].astype(np.int8)))
+        if hasattr(view, "prefetch"):
+            # A window-gathering view reads every undecided member in one
+            # batch, not one gather per comparison.
+            view.prefetch(sorted({int(out[j]) for lo, hi in
+                                  zip(run_edges[::2], run_edges[1::2])
+                                  for j in range(lo, hi + 1)}))
         for lo, hi in zip(run_edges[::2], run_edges[1::2]):
             seg = out[lo:hi + 1].tolist()      # undecided run + its tail
             seg.sort(key=functools.cmp_to_key(
@@ -501,6 +520,9 @@ def _resolve_residue_host(arr, slots: np.ndarray,
     lslots = slots[internal + 1].astype(np.int64)
     lvals = lv[internal]
     deep = internal[(~has_mm[internal]) & (shorter[internal] > K)]
+    if len(deep) and hasattr(view, "prefetch"):
+        view.prefetch(sorted({int(out[j]) for j in deep}
+                             | {int(out[j + 1]) for j in deep}))
     for j in deep:
         lvals[np.searchsorted(internal, j)] = view.suffix_lcp(
             int(out[j]), int(out[j + 1]))

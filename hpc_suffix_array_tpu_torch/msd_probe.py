@@ -66,6 +66,23 @@ Modes:
             ``device_trace`` around the P = 4 carried-keys build at 2^28
             (busy and idle share, top device operations, longest idle
             gaps) and around the P = 4 distributed PLCP at 2^24.
+  mp        the multi-process path: first one attempt at two NCCL ranks
+            on the one card (an all_reduce from each, ``NCCL_DEBUG=WARN``),
+            expected to be refused: how each rank ended (the all_reduce
+            ran, an error exit, or no answer within 60 s and killed) and
+            the last lines it wrote to stderr; then ``bench/weak_scaling_worker.py`` (the
+            library entry ``build_suffix_array_sharded_big_mp`` with
+            ``want_lcp``, a warm-up, then one timed build between
+            barriers) at 1 process x 4 shards on NCCL, 2^28 random alnum
+            (smoke phase 13a's geometry), and at 2 processes x 2 shards
+            on gloo (13b's), 2^26 random alnum and p1000, beside 1
+            process x 4 shards on gloo at 2^26 alnum and the
+            single-process ``build_suffix_array_sharded_big`` on 4
+            shards (a warm-up, then two runs) of the same texts, staged on
+            the card; then a
+            trace of one 2 x 2 gloo build at 2^26 alnum from process 0:
+            busy and idle share, top device operations, and the host
+            spans "gloo host stage" (count, total ms).
 
 Texts are made on the card from a seeded ``torch.Generator`` (words on
 the host, in batches) and copied to the host once
@@ -592,10 +609,142 @@ def mode_sharded() -> None:
     os.remove(f"{out}/trace.json")
 
 
+NCCL_TWO_RANKS = r"""
+import sys
+import torch
+import torch.distributed as dist
+rank, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + store, rank=rank,
+                        world_size=2, device_id=torch.device("cuda", 0))
+x = torch.ones(4, device="cuda:0")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("ALL_REDUCE_RAN", x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _nccl_two_ranks(out: str) -> None:
+    """Two NCCL ranks on one card: the expected refusal, as each rank
+    reports it."""
+    store = os.path.abspath(f"{out}/nccl_two_ranks_store")
+    if os.path.exists(store):
+        os.remove(store)
+    env = {**os.environ, "NCCL_DEBUG": "WARN"}
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_TWO_RANKS, str(r),
+                               store], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    deadline = time.monotonic() + 60
+    for r, proc in enumerate(procs):
+        try:
+            so, se = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            how = ("the all_reduce ran" if "ALL_REDUCE_RAN" in so
+                   else f"refused: exit {proc.returncode}")
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+            how = "no answer within 60 s (a hang), killed"
+        tail = [ln.strip() for ln in se.splitlines() if ln.strip()][-4:]
+        say("mp", f"two NCCL ranks on one card, rank {r}: {how}; stderr "
+                  f"ends {json.dumps(tail)}")
+
+
+def _mp_worker_run(out: str, tag: str, nprocs: int, dpp: int,
+                   bytes_per_shard: int, corpus: str, gloo: bool,
+                   trace: str | None = None) -> dict:
+    """Process 0's report of ``bench/weak_scaling_worker.py`` (with
+    ``--lcp``) on ``nprocs`` x ``dpp`` shards of the card."""
+    from hpc_suffix_array_tpu_torch.bench import weak_scaling
+    from hpc_suffix_array_tpu_torch.cli_distributed import run_workers
+
+    worker = os.path.join(os.path.dirname(weak_scaling.__file__),
+                          "weak_scaling_worker.py")
+    store = os.path.abspath(f"{out}/store_{tag}")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ)
+    if gloo:
+        env["SA_PG_BACKEND"] = "gloo"
+    cmds = [[sys.executable, worker, str(i), str(nprocs), f"file://{store}",
+             str(bytes_per_shard), str(dpp), "--device", "cuda", "--corpus",
+             corpus, "--seed", "0", "--lcp"]
+            + (["--trace", trace] if trace else []) for i in range(nprocs)]
+    log = f"{out}/worker_{tag}.out"
+    with open(log, "w") as f:
+        rc = run_workers(cmds, stdout=f, env=env, timeout=900)
+    if rc:
+        raise RuntimeError(f"mp worker {tag} exited {rc}; see {log}")
+    with open(log) as f:
+        return json.loads(f.read().strip().splitlines()[-1])
+
+
+def mode_mp() -> None:
+    from hpc_suffix_array_tpu_torch.datasets.generate import (
+        generate_random_text, generate_repetitive_text)
+    from hpc_suffix_array_tpu_torch.parallel import (
+        build_suffix_array_sharded_big, make_mesh)
+    from hpc_suffix_array_tpu_torch.utils.profiling import (
+        device_busy, read_trace)
+
+    out = f"{OUT}/mp"
+    os.makedirs(out, exist_ok=True)
+    _nccl_two_ranks(out)
+    mesh = make_mesh(4, devices=["cuda:0"])
+    runs = (("13a", 1, 4, 1 << 26, "random", False),
+            ("13b_alnum", 2, 2, 1 << 24, "random", True),
+            ("13b_p1000", 2, 2, 1 << 24, "repetitive", True),
+            ("1x4_gloo_alnum", 1, 4, 1 << 24, "random", True))
+    for tag, nprocs, dpp, per, corpus, gloo in runs:
+        r = _mp_worker_run(out, tag, nprocs, dpp, per, corpus, gloo)
+        say("mp", f"{tag}: {nprocs} process(es) x {dpp} shards, "
+                  f"{'gloo' if gloo else 'nccl'}, n={r['n']} {corpus}: "
+                  f"build_suffix_array_sharded_big_mp SA+LCP "
+                  f"{r['sa_time']:.4f} s; process 0 peak "
+                  f"{gib(r['peak_bytes'])}; process 0 launches "
+                  f"{json.dumps(r['launches'])}")
+    for per, corpus, make in ((1 << 26, "random", generate_random_text),
+                              (1 << 24, "random", generate_random_text),
+                              (1 << 24, "repetitive",
+                               generate_repetitive_text)):
+        text = torch.from_numpy(make(4 * per, 0)).cuda()
+        build_suffix_array_sharded_big(text, mesh, want_lcp=True)
+        times = []
+        for _ in range(2):
+            s, peak, res = _timed_peak(lambda: build_suffix_array_sharded_big(
+                text, mesh, want_lcp=True))
+            times.append(f"{s:.4f}")
+            del res
+        say("mp", f"one process, 4 shards, n={4 * per} {corpus}: "
+                  f"build_suffix_array_sharded_big SA+LCP s {times}; peak "
+                  f"{gib(peak)}")
+        del text
+        torch.cuda.empty_cache()
+    trace = f"{out}/trace_gloo"
+    _mp_worker_run(out, "trace", 2, 2, 1 << 24, "random", True, trace=trace)
+    events = read_trace(trace)
+    busy = device_busy(events, n_top=10, n_gaps=5)
+    stages = [e for e in events if e["name"] == "gloo host stage"]
+    say("mp", f"trace 2 x 2 gloo n=2^26 alnum (process 0): "
+              f"{busy['n_events']} device events, window "
+              f"{busy['window_ms']:.2f} ms, busy {busy['busy_ms']:.2f} ms, "
+              f"idle share {busy['idle_share']:.4f}; 'gloo host stage' "
+              f"spans {len(stages)}, {sum(e['dur'] for e in stages) / 1e3:.2f}"
+              f" ms")
+    say("mp", f"trace 2 x 2 gloo top device operations: "
+              f"{json.dumps(busy['top'])}")
+    say("mp", f"trace 2 x 2 gloo longest idle gaps: "
+              f"{json.dumps(busy['gaps'])}")
+    os.remove(f"{trace}/trace.json")
+
+
 MODES = {"check": mode_check, "cross": mode_cross, "geometry": mode_geometry,
          "words30": mode_words30, "n31": mode_n31, "route": mode_route,
          "validate": mode_validate, "warm": mode_warm, "sweep": mode_sweep,
-         "small": mode_small, "trace": mode_trace, "sharded": mode_sharded}
+         "small": mode_small, "trace": mode_trace, "sharded": mode_sharded,
+         "mp": mode_mp}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Native host helpers (SA-IS, Kasai) via ctypes, JAX-free.
+"""Native host helpers (SA-IS, Kasai, the O(n) validator) via ctypes,
+JAX-free.
 
 Compiles the JAX package's ``native/sais.c``, read by path, into the
 repository's ``build/native/`` directory on first use, keyed by a hash
@@ -51,6 +52,8 @@ def build() -> ctypes.CDLL:
     lib.tpu_sa_build.restype = ctypes.c_int
     lib.tpu_lcp_kasai.argtypes = [u8p, i32p, ctypes.c_int32, i32p]
     lib.tpu_lcp_kasai.restype = ctypes.c_int
+    lib.tpu_sa_validate.argtypes = [u8p, i32p, ctypes.c_int32]
+    lib.tpu_sa_validate.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -92,3 +95,16 @@ def lcp_kasai(text, sa) -> np.ndarray:
         raise MemoryError("tpu_lcp_kasai failed")
     return lcp
 
+
+def sa_validate(text, sa) -> bool:
+    """True iff ``sa`` is the suffix array of the uint8 host text: a
+    permutation of [0, n) whose adjacent pairs are in suffix order
+    (O(n), ``tpu_sa_validate``)."""
+    arr, sa = _text(text), _sa(sa)
+    n = int(arr.shape[0])
+    if sa.shape[0] != n:
+        return False
+    rc = build().tpu_sa_validate(_u8(arr), _i32(sa), n)
+    if rc < 0:
+        raise MemoryError("tpu_sa_validate failed")
+    return bool(rc)

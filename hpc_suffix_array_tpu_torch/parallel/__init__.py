@@ -1,17 +1,19 @@
-"""Sharded execution: one process driving P shards.
+"""Sharded execution: P shards, in one process or several.
 
-Counterpart of ``hpc_suffix_array_tpu/parallel/`` (its single-process
-``shard_map`` mesh): every array is block-sharded over a ``Mesh`` of P
-shards (``parallel/mesh.py``), the shards sort with a block-bitonic
-compare-split network on the port's radix sort, and the LCP array and
-the validator run sharded too. No shard holds more than 2n/P records of
-the sort, and no array is replicated. Texts from 4 MiB, and deep-repeat
-texts from 64 KiB, first try the sharded carried-keys builder
-(``parallel/bigsort.py``): one distributed sort gives the SA and the
-LCP.
+Counterpart of ``hpc_suffix_array_tpu/parallel/``: every array is
+block-sharded over a ``Mesh`` of P shards (``parallel/mesh.py``), the
+shards sort with a block-bitonic compare-split network on the port's
+radix sort, and the LCP array and the validator run sharded too. No
+shard holds more than 2n/P records of the sort, and no array is
+replicated. Texts from 4 MiB, and deep-repeat texts from 64 KiB, first
+try the sharded carried-keys builder (``parallel/bigsort.py``): one
+distributed sort gives the SA and the LCP.
 
-The JAX package's multi-process mesh (``parallel/multihost.py``) and the
-multi-process entry of its ``parallel/bigsort.py`` are not here yet.
+A mesh may span processes (``parallel/multihost.py``: the process group
+and ``make_global_mesh``); its collectives then run over
+``torch.distributed``. ``build_suffix_array_sharded_big_mp`` builds where
+each process holds only its block of the text (``mp_local_geometry``),
+as the multi-process CLI (``cli_distributed.py``) runs it.
 """
 
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
@@ -19,9 +21,12 @@ from hpc_suffix_array_tpu_torch.parallel.mesh import (
 from hpc_suffix_array_tpu_torch.parallel.doubling import (
     build_suffix_array_sharded, suffix_array_kernel_sharded, text_length)
 from hpc_suffix_array_tpu_torch.parallel.bigsort import (
-    build_suffix_array_sharded_big, sharded_msd_min, try_carried_keys,
-    wide_auto)
+    build_suffix_array_sharded_big, build_suffix_array_sharded_big_mp,
+    mp_local_geometry, sharded_msd_min, try_carried_keys, wide_auto)
 from hpc_suffix_array_tpu_torch.parallel.lcp import build_lcp_array_sharded
+from hpc_suffix_array_tpu_torch.parallel.multihost import (
+    host_local_shard, initialize_distributed, make_global_mesh,
+    put_sharded_text)
 from hpc_suffix_array_tpu_torch.parallel.validate import (
     is_valid_suffix_array_sharded)
 
@@ -62,6 +67,12 @@ __all__ = [
     "unshard",
     "build_suffix_array_sharded",
     "build_suffix_array_sharded_big",
+    "build_suffix_array_sharded_big_mp",
+    "mp_local_geometry",
+    "host_local_shard",
+    "initialize_distributed",
+    "make_global_mesh",
+    "put_sharded_text",
     "suffix_array_kernel_sharded",
     "build_lcp_array_sharded",
     "is_valid_suffix_array_sharded",

@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
-from hpc_suffix_array_tpu_torch.parallel.mesh import ppermute
+from hpc_suffix_array_tpu_torch.parallel.mesh import (
+    first_local, local_ids, ppermute)
 
 
 def _sort_rows(block: torch.Tensor, num_keys: int, live_bits) -> None:
@@ -64,19 +65,22 @@ def block_bitonic_sort(blocks: list[torch.Tensor], num_keys: int,
     per key). Returns new blocks; concatenated in shard order along dim
     1 they are sorted by the keys. The inputs are left as they were."""
     n_shards = len(blocks)
-    if blocks[0].shape[0] not in (num_keys, num_keys + 1):
+    rows = first_local(blocks).shape[0]
+    if rows not in (num_keys, num_keys + 1):
         raise ValueError(f"blocks need {num_keys} key rows and at most one "
-                         f"payload row, got {blocks[0].shape[0]} rows")
-    blocks = [b.clone() for b in blocks]
-    for b in blocks:
-        _sort_rows(b, num_keys, live_bits)
+                         f"payload row, got {rows} rows")
+    mine = local_ids(blocks)
+    blocks = [None if b is None else b.clone() for b in blocks]
+    for me in mine:
+        _sort_rows(blocks[me], num_keys, live_bits)
     k = 2
     while k <= n_shards:
         j = k // 2
         while j >= 1:
             other = ppermute(blocks, [(i, i ^ j) for i in range(n_shards)])
-            blocks = [_merge_keep(blocks[me], other[me], me, j, k, num_keys,
-                                  live_bits) for me in range(n_shards)]
+            for me in mine:
+                blocks[me] = _merge_keep(blocks[me], other[me], me, j, k,
+                                         num_keys, live_bits)
             del other
             j //= 2
         k *= 2

@@ -40,8 +40,8 @@ from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
 from hpc_suffix_array_tpu_torch.parallel.bitonic import block_bitonic_sort
 from hpc_suffix_array_tpu_torch.parallel.gather import dist_scatter_perm
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
-    Mesh, make_mesh, padded_length, ppermute, read_scalar, shard,
-    shard_iota, unshard)
+    Mesh, first_local, local_ids, make_mesh, padded_length, ppermute,
+    read_scalar, shard, shard_iota, smap, unshard)
 from hpc_suffix_array_tpu_torch.parallel.rerank import dist_rerank_multi
 from hpc_suffix_array_tpu_torch.parallel.shift import dist_shifted_ranks
 
@@ -53,7 +53,8 @@ def text_length(text) -> int:
 
 def padded_shards(text, n_pad: int, mesh: Mesh) -> list[torch.Tensor]:
     """Sharded uint8 text, zero-padded to ``n_pad`` bytes (a host array,
-    or a tensor padded on its own device)."""
+    or a tensor padded on its own device); only this process's shards
+    are placed."""
     if isinstance(text, torch.Tensor):
         full = torch.zeros(n_pad, dtype=torch.uint8, device=text.device)
         full[:text.shape[0]] = text
@@ -76,22 +77,22 @@ def sort_live_bits(n_pad: int) -> list[int]:
 def _dist_round(rank: list[torch.Tensor], k: int, live_bits: list[int]):
     """One sharded doubling round; returns (new_rank, max_rank, sa)."""
     n_shards = len(rank)
-    m = rank[0].shape[0]
+    m = first_local(rank).shape[0]
     n = n_shards * m
     shifts = [dist_shifted_ranks(rank, j * k) for j in range(1, FACTOR)]
-    blocks = []
-    for me in range(n_shards):
+    blocks = [None] * n_shards
+    for me in local_ids(rank):
         gidx = shard_iota(me, m, rank[me].device)
         # The sentinel -1 becomes 0: the radix sort reads keys unsigned.
-        blocks.append(torch.stack([rank[me], *(s[me] + 1 for s in shifts),
-                                   gidx, gidx]))
+        blocks[me] = torch.stack([rank[me], *(s[me] + 1 for s in shifts),
+                                  gidx, gidx])
     del shifts
     blocks = block_bitonic_sort(blocks, FACTOR + 1, live_bits)
-    s_idx = [b[FACTOR + 1].clone() for b in blocks]
+    s_idx = smap(lambda b: b[FACTOR + 1].clone(), blocks)
     dense, max_rank = dist_rerank_multi(
-        [[b[c] for b in blocks] for c in range(FACTOR)])
+        [smap(lambda b, c=c: b[c], blocks) for c in range(FACTOR)])
     del blocks
-    top = read_scalar(max_rank[0])          # the round's one host read
+    top = read_scalar(first_local(max_rank))   # the round's one host read
     # On the converged round new_rank is never read again: skip the route.
     if top >= n - 1:
         return rank, top, s_idx
@@ -104,15 +105,15 @@ def _pack_local(bits: int, h0: int, texts: list[torch.Tensor], remap,
     the first ``PACK_BITS`` bytes of the next shard (the last shard gets
     zeros), with positions at or past ``n_real`` reading 0."""
     n_shards = len(texts)
-    m = texts[0].shape[0]
-    halo = ppermute([t[:PACK_BITS] for t in texts],
+    m = first_local(texts).shape[0]
+    halo = ppermute(smap(lambda t: t[:PACK_BITS], texts),
                     [(i, i - 1) for i in range(1, n_shards)])
-    out = []
-    for me in range(n_shards):
+    out = [None] * n_shards
+    for me in local_ids(texts):
         ext = torch.cat([texts[me], halo[me]])
         real = min(max(n_real - me * m, 0), ext.shape[0])
         table = torch.as_tensor(remap, dtype=torch.int32).to(ext.device)
-        out.append(pack_ranks(ext, table, bits, h0, real)[:m])
+        out[me] = pack_ranks(ext, table, bits, h0, real)[:m]
     return out
 
 
@@ -124,7 +125,7 @@ def suffix_array_kernel_sharded(rank0: list[torch.Tensor], k0: int):
     order), ``rank`` the dense rank before the converging round, as in
     the JAX kernel. At least one round runs; the loop stops when all
     ranks differ or k reaches 2n."""
-    m = rank0[0].shape[0]
+    m = first_local(rank0).shape[0]
     n = len(rank0) * m
     live = sort_live_bits(n)
     rank, k, top, rounds, sa = rank0, int(k0), -1, 0, None
@@ -140,7 +141,9 @@ def build_suffix_array_sharded(text, mesh: Mesh | None = None,
                                msd: bool | None = None) -> torch.Tensor:
     """Suffix array int32[n] of ``text`` (str, bytes, uint8 array or
     tensor), built block-sharded over ``mesh`` (default: one shard per
-    visible card), returned whole on the mesh's first device.
+    visible card), returned whole on the mesh's first device (on every
+    process of a mesh over several, each of which passes the whole
+    text).
 
     Texts from ``SA_SHARDED_MSD_MIN`` bytes (4 MiB), and deep-repeat
     texts from ``SA_SHARDED_CHAIN_MIN`` (64 KiB), first try the

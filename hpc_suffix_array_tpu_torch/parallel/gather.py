@@ -29,7 +29,7 @@ import os
 import torch
 
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
-    all_to_all, pmax, ppermute, read_scalar, shard_iota)
+    all_to_all, first_local, local_ids, pmax, ppermute, read_scalar, smap)
 
 # Mesh size at which dist_gather switches from the ring to routed
 # requests (override: SA_ROUTED_MIN_SHARDS; a threshold set on a TPU).
@@ -51,32 +51,34 @@ def dist_gather(values: list[torch.Tensor], indices: list[torch.Tensor],
     int32 global row indices, any length per shard; an index outside
     [0, n) yields ``fill``. Returns the answers in requester order."""
     n_shards = len(values)
-    m = values[0].shape[0]
+    m = first_local(values).shape[0]
     n = n_shards * m
-    safe = [i.clamp(0, n - 1) for i in indices]
+    safe = smap(lambda i: i.clamp(0, n - 1), indices)
     if n_shards >= ROUTED_MIN_SHARDS:
         out = _serve_routed(values, safe)
     else:
         out = _serve_ring(values, safe)
-    res = []
-    for v, idx, o in zip(values, indices, out):
+
+    def answer(v, idx, o):
         ok = _bcast((idx >= 0) & (idx < n), v.dim())
-        res.append(torch.where(ok, o, torch.tensor(fill, dtype=v.dtype,
-                                                   device=v.device)))
-    return res
+        return torch.where(ok, o, torch.tensor(fill, dtype=v.dtype,
+                                               device=v.device))
+
+    return smap(answer, values, indices, out)
 
 
 def _serve_ring(values: list[torch.Tensor], srcs: list[torch.Tensor]
                 ) -> list[torch.Tensor]:
     """values[src] for in-range src, rotating value blocks around the ring."""
     n_shards = len(values)
-    m = values[0].shape[0]
-    outs = [torch.zeros(s.shape + v.shape[1:], dtype=v.dtype,
-                        device=v.device) for v, s in zip(values, srcs)]
+    m = first_local(values).shape[0]
+    outs = smap(lambda v, s: torch.zeros(s.shape + v.shape[1:],
+                                         dtype=v.dtype, device=v.device),
+                values, srcs)
     blocks = values
     perm = [(i, (i - 1) % n_shards) for i in range(n_shards)]
     for step in range(n_shards):
-        for me in range(n_shards):
+        for me in local_ids(values):
             lo = ((me + step) % n_shards) * m   # owner of the held block
             local = srcs[me] - lo
             hit = _bcast((local >= 0) & (local < m), values[me].dim())
@@ -93,36 +95,39 @@ def _serve_routed(values: list[torch.Tensor], srcs: list[torch.Tensor],
     one local gather per shard; the ring when any owner overflows the
     per-owner budget ``slack * ceil(r / P)``."""
     n_shards = len(values)
-    m = values[0].shape[0]
-    plans, overflow = [], []
-    for src in srcs:
+    m = first_local(values).shape[0]
+    mine = local_ids(values)
+    plans, overflow = [None] * n_shards, [None] * n_shards
+    for me in mine:
+        src = srcs[me]
         r = src.shape[0]
         c = min(r, slack * (-(-r // n_shards)))
         o_s, pos_s = torch.sort(torch.div(src, m, rounding_mode="floor"),
                                 stable=True)
         first = torch.searchsorted(o_s, o_s, side="left")
         slot = torch.arange(r, device=src.device) - first
-        plans.append((c, o_s, pos_s, slot))
-        overflow.append((slot >= c).any().to(torch.int32))
-    if read_scalar(pmax(overflow)[0]):
+        plans[me] = (c, o_s, pos_s, slot)
+        overflow[me] = (slot >= c).any().to(torch.int32)
+    if read_scalar(first_local(pmax(overflow))):
         return _serve_ring(values, srcs)
 
-    reqs = []
-    for src, (c, o_s, pos_s, slot) in zip(srcs, plans):
-        req = torch.full((n_shards, c), -1, dtype=torch.int32,
-                         device=src.device)
-        req[o_s, slot] = src[pos_s]
-        reqs.append(req)
+    reqs = [None] * n_shards
+    for me in mine:
+        c, o_s, pos_s, slot = plans[me]
+        reqs[me] = torch.full((n_shards, c), -1, dtype=torch.int32,
+                              device=srcs[me].device)
+        reqs[me][o_s, slot] = srcs[me][pos_s]
     recv = all_to_all(reqs)
-    answers = [v[(rq - me * m).clamp_(0, m - 1).long()]       # (P, c, ...)
-               for me, (v, rq) in enumerate(zip(values, recv))]
+    answers = [None] * n_shards
+    for me in mine:                                           # (P, c, ...)
+        answers[me] = values[me][(recv[me] - me * m).clamp_(0, m - 1).long()]
     back = all_to_all(answers)
-    outs = []
-    for v, src, b, (c, o_s, pos_s, slot) in zip(values, srcs, back, plans):
-        out = torch.zeros(src.shape + v.shape[1:], dtype=v.dtype,
-                          device=v.device)
-        out[pos_s] = b[o_s, slot]
-        outs.append(out)
+    outs = [None] * n_shards
+    for me in mine:
+        v, src, (c, o_s, pos_s, slot) = values[me], srcs[me], plans[me]
+        outs[me] = torch.zeros(src.shape + v.shape[1:], dtype=v.dtype,
+                               device=v.device)
+        outs[me][pos_s] = back[me][o_s, slot]
     return outs
 
 
@@ -137,22 +142,20 @@ def dist_scatter_perm(values: list[torch.Tensor], dest: list[torch.Tensor]
     case) neither fails nor writes out of bounds: which duplicate wins
     is unspecified, as in ``.at[].set``."""
     n_shards = len(values)
-    m = values[0].shape[0]
-    outs, drops = [], []
-    for v in values:
-        r = v.shape[0]
-        outs.append(torch.zeros(m + DROP_SLOTS, dtype=v.dtype,
-                                device=v.device))
-        drops.append(m + (torch.arange(r, dtype=torch.int32,
-                                       device=v.device) % DROP_SLOTS))
-    pairs = [torch.stack([d, v.to(d.dtype)]) for d, v in zip(dest, values)]
+    m = first_local(values).shape[0]
+    outs = smap(lambda v: torch.zeros(m + DROP_SLOTS, dtype=v.dtype,
+                                      device=v.device), values)
+    drops = smap(lambda v: m + (torch.arange(
+        v.shape[0], dtype=torch.int32, device=v.device) % DROP_SLOTS),
+        values)
+    pairs = smap(lambda d, v: torch.stack([d, v.to(d.dtype)]), dest, values)
     perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
     for step in range(n_shards):
-        for me in range(n_shards):
+        for me in local_ids(values):
             local = pairs[me][0] - me * m
             hit = (local >= 0) & (local < m)
             slot = torch.where(hit, local, drops[me])
             outs[me].index_put_((slot,), pairs[me][1].to(outs[me].dtype))
         if step + 1 < n_shards:
             pairs = ppermute(pairs, perm)
-    return [o[:m] for o in outs]
+    return smap(lambda o: o[:m], outs)

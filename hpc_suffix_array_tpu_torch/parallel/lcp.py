@@ -34,8 +34,8 @@ from hpc_suffix_array_tpu_torch.parallel.doubling import (
 from hpc_suffix_array_tpu_torch.parallel.gather import (
     dist_gather, dist_scatter_perm)
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
-    Mesh, all_gather, make_mesh, padded_length, psum, read_scalar, shard,
-    shard_iota, unshard)
+    Mesh, all_gather, first_local, local_ids, local_iota, make_mesh,
+    padded_length, psum, read_scalar, shard, smap, unshard)
 
 CMP_WIDTH = 16   # bytes compared per unresolved position per round
 JUMP_STEPS = 2
@@ -55,18 +55,17 @@ def chunk_count(m: int) -> int:
 
 def _setup(sa_pad: list[torch.Tensor], n_real: int):
     """phi and limit from the padded suffix array (pads at its head)."""
-    m = sa_pad[0].shape[0]
-    g = [shard_iota(me, m, s.device) for me, s in enumerate(sa_pad)]
+    g = local_iota(sa_pad)
     isa = dist_scatter_perm(g, sa_pad)
-    phi = dist_gather(sa_pad, [i - 1 for i in isa], fill=-1)
-    limits = []
-    for me in range(len(sa_pad)):
+    phi = dist_gather(sa_pad, smap(lambda i: i - 1, isa), fill=-1)
+    limits = [None] * len(sa_pad)
+    for me in local_ids(sa_pad):
         # A predecessor that is a pad suffix or missing gives plcp 0
         # (only the real SA's head lands here).
         ok = (phi[me] >= 0) & (phi[me] < n_real) & (g[me] < n_real)
         phi[me] = torch.where(ok, phi[me], -1)
-        limits.append(torch.where(
-            ok, n_real - torch.maximum(g[me], phi[me]), 0).to(torch.int32))
+        limits[me] = torch.where(
+            ok, n_real - torch.maximum(g[me], phi[me]), 0).to(torch.int32)
     return phi, limits
 
 
@@ -74,22 +73,23 @@ def _extend(texts, cur, phi, active, g, n_real: int, nc: int):
     """Bytes matched past ``cur`` (0..CMP_WIDTH) for each active position,
     by chunked text-window ring gathers."""
     n_shards = len(texts)
-    m = cur[0].shape[0]
+    mine = local_ids(texts)
+    m = first_local(cur).shape[0]
     chunk = m // nc
     offs = torch.arange(CMP_WIDTH, dtype=torch.int32,
-                        device=texts[0].device)[None, :]
-    matched = [torch.empty_like(c) for c in cur]
+                        device=first_local(texts).device)[None, :]
+    matched = smap(torch.empty_like, cur)
     for c in range(nc):
         part = slice(c * chunk, (c + 1) * chunk)
-        a_pos, b_pos = [], []
-        for me in range(n_shards):
+        a_pos, b_pos = [None] * n_shards, [None] * n_shards
+        for me in mine:
             o = offs.to(texts[me].device)
             base = cur[me][part, None] + o
-            a_pos.append((g[me][part, None] + base).reshape(-1))
-            b_pos.append((phi[me][part, None] + base).reshape(-1))
+            a_pos[me] = (g[me][part, None] + base).reshape(-1)
+            b_pos[me] = (phi[me][part, None] + base).reshape(-1)
         ta = dist_gather(texts, a_pos)
         tb = dist_gather(texts, b_pos)
-        for me in range(n_shards):
+        for me in mine:
             eq = ((ta[me] == tb[me]) & (a_pos[me] < n_real)
                   & (b_pos[me] < n_real) & (b_pos[me] >= 0)
                   ).view(chunk, CMP_WIDTH) & active[me][part, None]
@@ -102,14 +102,13 @@ def _extend(texts, cur, phi, active, g, n_real: int, nc: int):
 def _round(texts, phi, limit, n_real: int, nc: int, cur, resolved):
     """One distributed propagate + jump + extend round; returns (cur,
     resolved, unresolved count per shard)."""
-    n_shards = len(cur)
-    m = cur[0].shape[0]
-    g = [shard_iota(me, m, c.device) for me, c in enumerate(cur)]
+    mine = local_ids(cur)
+    g = local_iota(cur)
 
     # 1) monotone propagation: plcp[i] + i is non-decreasing.
-    runs = [torch.cummax(c + gi, 0).values for c, gi in zip(cur, g)]
-    maxima = all_gather([r[-1] for r in runs])                  # (P,)
-    for me in range(n_shards):
+    runs = smap(lambda c, gi: torch.cummax(c + gi, 0).values, cur, g)
+    maxima = all_gather(smap(lambda r: r[-1], runs))            # (P,)
+    for me in mine:
         before = maxima[me][:me]
         carry = before.max() if me else torch.tensor(
             INT32_FLOOR, dtype=torch.int32, device=runs[me].device)
@@ -122,11 +121,11 @@ def _round(texts, phi, limit, n_real: int, nc: int, cur, resolved):
 
     # 2) pointer jumping along the aligned phi chain (one 3-column gather).
     for _ in range(JUMP_STEPS):
-        tgt = [gi + c for gi, c in zip(g, cur)]
-        cols = [torch.stack([p, c, r.to(torch.int32)], dim=1)
-                for p, c, r in zip(phi, cur, resolved)]
+        tgt = smap(torch.add, g, cur)
+        cols = smap(lambda p, c, r: torch.stack([p, c, r.to(torch.int32)],
+                                                dim=1), phi, cur, resolved)
         got = dist_gather(cols, tgt, fill=-1)
-        for me in range(n_shards):
+        for me in mine:
             t_phi, t_cur, t_res = got[me].unbind(1)
             aligned = ((~resolved[me]) & (tgt[me] < n_real)
                        & (t_phi == phi[me] + cur[me]))
@@ -138,12 +137,12 @@ def _round(texts, phi, limit, n_real: int, nc: int, cur, resolved):
         del cols, got
 
     # 3) verified extension.
-    active = [~r for r in resolved]
+    active = smap(torch.logical_not, resolved)
     matched = _extend(texts, cur, phi, active, g, n_real, nc)
-    for me in range(n_shards):
+    for me in mine:
         cur[me] = cur[me] + torch.where(active[me], matched[me], 0)
         resolved[me] = resolved[me] | (active[me] & (matched[me] < CMP_WIDTH))
-    unresolved = psum([(~r).sum(dtype=torch.int32) for r in resolved])
+    unresolved = psum(smap(lambda r: (~r).sum(dtype=torch.int32), resolved))
     return cur, resolved, unresolved
 
 
@@ -152,7 +151,8 @@ def build_lcp_array_sharded(text, sa, mesh: Mesh | None = None,
     """LCP array int32[n] (lcp[0] = 0, lcp[i] = LCP of suffixes sa[i-1]
     and sa[i]) of ``text`` and its suffix array ``sa`` (int32[n], host or
     tensor), built block-sharded over ``mesh`` and returned whole on the
-    mesh's first device.
+    mesh's first device (on every process of a mesh over several, each
+    of which passes the whole text and SA).
 
     Positions are padded as the sharded builder pads them: the pad
     suffixes occupy the head of the padded SA in descending position
@@ -192,14 +192,14 @@ def build_lcp_array_sharded(text, sa, mesh: Mesh | None = None,
     del sa_pad
 
     phi, limit = _setup(sas, n)
-    cur = [torch.zeros_like(p) for p in phi]
-    resolved = [p < 0 for p in phi]
+    cur = smap(torch.zeros_like, phi)
+    resolved = smap(lambda p: p < 0, phi)
     rounds = 0
     for _ in range(n // CMP_WIDTH + 2):
         cur, resolved, unresolved = _round(texts, phi, limit, n, nc, cur,
                                            resolved)
         rounds += 1
-        if read_scalar(unresolved[0]) == 0:   # the round's one host read
+        if read_scalar(first_local(unresolved)) == 0:   # one host read
             break
     if info is not None:
         info["plcp_rounds"] = rounds

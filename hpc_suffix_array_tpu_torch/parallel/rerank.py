@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from hpc_suffix_array_tpu_torch.parallel.mesh import all_gather, ppermute
+from hpc_suffix_array_tpu_torch.parallel.mesh import (
+    all_gather, local_ids, ppermute, smap)
 
 
 def dist_rerank(s_rank, s_rank_k):
@@ -26,14 +27,16 @@ def dist_rerank_multi(sorted_cols):
     per shard, all equal, the largest dense rank (P*m - 1 when all
     records differ)."""
     n_shards = len(sorted_cols[0])
+    mine = local_ids(sorted_cols[0])
     # The last record of each shard, for its successor shard (shard 0
     # receives zeros).
-    lasts = [torch.stack([c[me][-1:] for c in sorted_cols])
-             for me in range(n_shards)]
+    lasts = [None] * n_shards
+    for me in mine:
+        lasts[me] = torch.stack([c[me][-1:] for c in sorted_cols])
     prev = ppermute(lasts, [(i, i + 1) for i in range(n_shards - 1)])
 
-    locals_ = []
-    for me in range(n_shards):
+    locals_ = [None] * n_shards
+    for me in mine:
         bumps = None
         for c, col in enumerate(sorted_cols):
             prev_col = torch.cat([prev[me][c], col[me][:-1]])
@@ -41,10 +44,10 @@ def dist_rerank_multi(sorted_cols):
             bumps = b if bumps is None else (bumps | b)
         if me == 0:
             bumps[0] = False        # the globally first record
-        locals_.append(torch.cumsum(bumps, 0, dtype=torch.int32))
-    gathered = all_gather([loc[-1] for loc in locals_])          # (P,)
-    dense, max_rank = [], []
-    for me, loc in enumerate(locals_):
-        dense.append(loc + gathered[me][:me].sum(dtype=torch.int32))
-        max_rank.append(gathered[me].sum(dtype=torch.int32))
+        locals_[me] = torch.cumsum(bumps, 0, dtype=torch.int32)
+    gathered = all_gather(smap(lambda loc: loc[-1], locals_))    # (P,)
+    dense, max_rank = [None] * n_shards, [None] * n_shards
+    for me in mine:
+        dense[me] = locals_[me] + gathered[me][:me].sum(dtype=torch.int32)
+        max_rank[me] = gathered[me].sum(dtype=torch.int32)
     return dense, max_rank

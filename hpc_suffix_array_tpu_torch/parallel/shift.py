@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from hpc_suffix_array_tpu_torch.parallel.mesh import ppermute, shard_iota
+from hpc_suffix_array_tpu_torch.parallel.mesh import (
+    first_local, local_ids, ppermute, shard_iota)
 
 SENTINEL = -1  # rank of the empty suffix (as in ops/shift.py)
 
@@ -22,10 +23,11 @@ def dist_shifted_ranks(rank: list[torch.Tensor], k: int
     """Sharded int32 ``out`` with out[i] = rank[i + k] globally, or
     SENTINEL where i + k >= P*m (any k >= 0)."""
     n_shards = len(rank)
-    m = rank[0].shape[0]
+    m = first_local(rank).shape[0]
     n_total = n_shards * m
     if k >= n_total:
-        return [torch.full_like(x, SENTINEL) for x in rank]
+        return [None if x is None else torch.full_like(x, SENTINEL)
+                for x in rank]
     q, r = divmod(int(k), m)
 
     # Butterfly: afterwards x holds shard (me + q) mod P of the input.
@@ -40,12 +42,12 @@ def dist_shifted_ranks(rank: list[torch.Tensor], k: int
     # Neighbour pull: y = shard (me + q + 1) mod P.
     y = ppermute(x, [(i, (i - 1) % n_shards) for i in range(n_shards)])
 
-    out = []
-    for me in range(n_shards):
+    out = [None] * n_shards
+    for me in local_ids(rank):
         window = torch.cat([x[me], y[me]])[r:r + m]
         # Positions whose source falls past the padded end (this also
         # voids the butterfly's modular wrap-around).
         g = shard_iota(me, m, rank[me].device)
-        out.append(torch.where(g < n_total - k, window,
-                               torch.full_like(window, SENTINEL)))
+        out[me] = torch.where(g < n_total - k, window,
+                              torch.full_like(window, SENTINEL))
     return out

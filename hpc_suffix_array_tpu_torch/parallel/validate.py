@@ -25,8 +25,8 @@ from hpc_suffix_array_tpu_torch.parallel.doubling import (
 from hpc_suffix_array_tpu_torch.parallel.gather import (
     dist_gather, dist_scatter_perm)
 from hpc_suffix_array_tpu_torch.parallel.mesh import (
-    Mesh, make_mesh, padded_length, ppermute, psum, read_scalar, shard,
-    shard_iota)
+    Mesh, first_local, local_ids, local_iota, make_mesh, padded_length,
+    ppermute, psum, read_scalar, shard, smap)
 
 
 def _violations(texts: list[torch.Tensor], sa_pad: list[torch.Tensor]
@@ -34,25 +34,26 @@ def _violations(texts: list[torch.Tensor], sa_pad: list[torch.Tensor]
     """Per shard, the count of out-of-range entries, slots not hit
     exactly once, and adjacent pairs out of order."""
     n_shards = len(sa_pad)
-    m = sa_pad[0].shape[0]
+    m = first_local(sa_pad).shape[0]
     n = n_shards * m
-    g = [shard_iota(me, m, s.device) for me, s in enumerate(sa_pad)]
-    bad = [((s < 0) | (s >= n)).sum(dtype=torch.int64) for s in sa_pad]
-    safe = [s.clamp(0, n - 1) for s in sa_pad]
-    hits = dist_scatter_perm([torch.ones_like(s) for s in sa_pad], safe)
-    bad = [b + (h != 1).sum(dtype=torch.int64) for b, h in zip(bad, hits)]
+    g = local_iota(sa_pad)
+    bad = smap(lambda s: ((s < 0) | (s >= n)).sum(dtype=torch.int64),
+               sa_pad)
+    safe = smap(lambda s: s.clamp(0, n - 1), sa_pad)
+    hits = dist_scatter_perm(smap(torch.ones_like, sa_pad), safe)
+    bad = smap(lambda b, h: b + (h != 1).sum(dtype=torch.int64), bad, hits)
     isa = dist_scatter_perm(g, safe)
 
     # Adjacent SA entries: a = sa_pad[j - 1], b = sa_pad[j] (global j).
-    prev_in = ppermute([s[-1:] for s in sa_pad],
+    prev_in = ppermute(smap(lambda s: s[-1:], sa_pad),
                        [(i, i + 1) for i in range(n_shards - 1)])
-    a = [torch.cat([p, s[:-1]]) for p, s in zip(prev_in, sa_pad)]
+    a = smap(lambda p, s: torch.cat([p, s[:-1]]), prev_in, sa_pad)
     ca = dist_gather(texts, a)
     cb = dist_gather(texts, sa_pad)
     # Next rank: isa[s + 1], or -1 past the padded end.
-    ra = dist_gather(isa, [x + 1 for x in a], fill=-1)
-    rb = dist_gather(isa, [x + 1 for x in sa_pad], fill=-1)
-    for me in range(n_shards):
+    ra = dist_gather(isa, smap(lambda x: x + 1, a), fill=-1)
+    rb = dist_gather(isa, smap(lambda x: x + 1, sa_pad), fill=-1)
+    for me in local_ids(sa_pad):
         ok = (ca[me] < cb[me]) | ((ca[me] == cb[me]) & (ra[me] < rb[me]))
         ok |= g[me] == 0            # global j = 0 has no predecessor
         bad[me] = bad[me] + (~ok).sum(dtype=torch.int64)
@@ -80,4 +81,4 @@ def is_valid_suffix_array_sharded(text, sa, mesh: Mesh | None = None
     sas = shard(sa_pad, mesh)
     del sa_pad, sa_t
     bad = psum(_violations(padded_shards(text, n_pad, mesh), sas))
-    return read_scalar(bad[0]) == 0
+    return read_scalar(first_local(bad)) == 0

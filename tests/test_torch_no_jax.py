@@ -50,6 +50,19 @@ sa, lcp = par.build_suffix_array_sharded_big(b"mississippi" * 20, mesh,
 assert sa[:4].tolist() == [219, 208, 197, 186], sa
 assert cli.main(["banana", "--device", "cpu", "--backend", "sharded",
                  "--devices", "2"]) == 0
+import hpc_suffix_array_tpu_torch.cli_distributed as cli_distributed
+import hpc_suffix_array_tpu_torch.parallel.multihost as multihost
+import hpc_suffix_array_tpu_torch.bench.weak_scaling as weak_scaling
+import hpc_suffix_array_tpu_torch.bench.weak_scaling_worker
+import numpy as np
+text = np.frombuffer(b"mississippi" * 20, np.uint8)
+n_pad, start, stop = par.mp_local_geometry(len(text), mesh)
+block = np.zeros(stop - start, np.uint8)
+block[:len(text)] = text
+sa, lcp = par.build_suffix_array_sharded_big_mp(block, len(text), mesh,
+                                                want_lcp=True)
+assert sa[0][:4].tolist() == [219, 208, 197, 186], sa
+assert cli.main(["banana", "--distributed", "--device", "cpu"]) == 2
 import tempfile
 import hpc_suffix_array_tpu_torch.bench as bench
 import hpc_suffix_array_tpu_torch.bench.orchestrator as orchestrator

@@ -117,7 +117,24 @@ Drives the port's main paths on the card and checks them:
      2^24 bytes per shard, P = 1, 2, 4, 8 for its four builders and the
      two-process point, its CSV read back. Each worker resets and reports
      its own launch counts and peak; the workers' counts are summed. A
-     worker that fails fails the smoke.
+     worker that fails fails the smoke;
+ 14. the LCP routes (core/lcp_window.py) and the SA_CHAIN_MIN branch:
+     (a) the CLI's run() at 6 MiB on random alnum, DNA, p1000 (made on
+     the card) and words, each validated, its SA on the direct route and
+     its SA and LCP equal to SA-IS and Kasai, the LCP on the sorted-fetch
+     route (p1000: its misses closed by the chain rule; words: refused,
+     then PLCP); then build_lcp_array on the same SA under
+     SA_LCP_FETCH=sorted and =window, K1 launched once per three key
+     words on the sorted fetch and never on the window route, and PLCP
+     on the same SA, each timed once; (b) at
+     2^28 random alnum (phase 5's text and SA) both routes against phase
+     5's LCP byte for byte, warm median of 3, peak above the inputs, K1
+     launches, PLCP on the same SA, and K1 alone at the route's shape
+     (contiguous words and a row-major table) and the gather into SA
+     order, each beside its bound; (c) with SA_BIG_THRESHOLD = 16 MiB,
+     p1000 at 6 MiB on PATH:direct with (a)'s SA, alnum on
+     PATH:doubling; (d) ``python -m hpc_suffix_array_tpu_torch banana``
+     on the card.
 
 Phases 10 to 13 write under build/smoke.
 
@@ -133,7 +150,9 @@ longer runs them; their ``check_launches`` are those of the one K2 +
 glue + K3 pass of phase 3 that is held against the onesweep pass) and
 its ``harness_launches`` from the twin sweep of phase 10, its
 ``sharded_launches`` from the sharded CLI run of phase 12b and its
-``mp_launches`` from the multi-process CLI run of phase 13a, with
+``mp_launches`` from the multi-process CLI run of phase 13a (K1 also
+its ``lcp_sorted_launches``, from the sorted-fetch LCP of phase 14b,
+and its times at that shape), with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -177,15 +196,19 @@ from hpc_suffix_array_tpu_torch.core.bigsort import (
     build_suffix_array_big, direct_keys)
 from hpc_suffix_array_tpu_torch.core.lcp import (
     build_sa_lcp, lcp_from_plcp, plcp_kernel)
+from hpc_suffix_array_tpu_torch.core.lcp_window import (
+    _pick_wn, build_lcp_array_sorted, build_lcp_array_window, prepare_lcp,
+    prepare_lcp_sorted, sorted_words)
 from hpc_suffix_array_tpu_torch.core.refine import (
     pair_table, refine_packing)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, as_byte_tensor, build_suffix_array_doubling)
 from hpc_suffix_array_tpu_torch.core.validate import validate_kernel
 from hpc_suffix_array_tpu_torch.datasets import (
-    device_random_text, generate_dna_text, generate_random_text,
-    generate_repetitive_text, generate_standard_datasets,
-    generate_words_text)
+    device_dna_text, device_random_text, device_repetitive_text,
+    generate_dna_text, generate_random_text, generate_repetitive_text,
+    generate_standard_datasets, generate_words_text,
+    generate_words_text_batched)
 from hpc_suffix_array_tpu_torch.kernels import (
     _build, launch_counts, reset_launch_counts)
 from hpc_suffix_array_tpu_torch.kernels.pack import (
@@ -256,6 +279,15 @@ MP_WORDS_N = 1 << 22
 WEAK_BYTES = 1 << 24
 WEAK_BUILDERS = {"msd": 4, "msd_lcp": 4, "msd_wide": 4, "doubling": 4,
                  "msd_2proc": 2}
+# Phase 14, the LCP routes: the text size of [14a] and [14c] (between
+# SA_LCP_WINDOW_MIN and SA_LCP_BIG_MIN), the LCP route and miss finish
+# each corpus must take there (words: the sorted fetch refuses, then
+# PLCP), and the SA_BIG_THRESHOLD of [14c], above that size.
+LCP_N = 6 << 20
+LCP_ROUTES = {"random alnum": ("sorted", "none"), "DNA": ("sorted", "none"),
+              "repetitive p1000": ("sorted", "chain"),
+              "words": ("plcp", None)}
+CHAIN_BIG = 1 << 24
 CORPORA = (("random alnum", generate_random_text),
            ("DNA", generate_dna_text),
            ("repetitive p1000", generate_repetitive_text),
@@ -1466,6 +1498,243 @@ def mp_weak(card: str) -> None:
           f"msd_2proc workers' own are in their rows ({card})")
 
 
+def lcp_corpora() -> dict:
+    """The four corpora of [14a] at LCP_N bytes, made on the card (words
+    on the host: it has no card generator)."""
+    return {
+        "random alnum": device_random_text(LCP_N, SEED, "cuda"),
+        "DNA": device_dna_text(LCP_N, SEED, "cuda"),
+        "repetitive p1000": device_repetitive_text(LCP_N, SEED, "cuda"),
+        "words": torch.from_numpy(generate_words_text_batched(LCP_N, SEED)),
+    }
+
+
+def sorted_k1_launches(text: np.ndarray) -> int:
+    """K1 launches of one sorted-fetch LCP: one per three key words."""
+    remap, bits, _ = alphabet_remap(text)
+    wn = _pick_wn(len(text), int(remap.max()), 30 // bits)
+    return -(-wn // 3)
+
+
+def lcp_cli(name: str, text: np.ndarray, card: str) -> np.ndarray:
+    """[14a] cli.run at LCP_N on ``text``: the SA on the direct route, the
+    LCP on LCP_ROUTES[name], both equal to SA-IS and Kasai; then
+    build_lcp_array on the same SA under SA_LCP_FETCH=sorted and =window,
+    each with its own launch counts. Returns the SA."""
+    want_sa = native.sa_build(text)
+    want_lcp = native.lcp_kasai(text, want_sa)
+    arrays: dict = {}
+    buf = io.StringIO()
+    reset_launches()
+    res = cli_run(text, f"{name}_6MiB", "cuda", validate=True,
+                  dialect="sequential", out=buf, arrays=arrays)
+    counts = launches()
+    if "Valid suffix array: YES" not in buf.getvalue():
+        raise AssertionError(f"[14a] {name} not validated")
+    if res["path"] != "direct":
+        raise AssertionError(f"[14a] {name}: SA route {res['path']}")
+    if not (np.array_equal(arrays["sa"].cpu().numpy(), want_sa)
+            and np.array_equal(arrays["lcp"].cpu().numpy(), want_lcp)):
+        raise AssertionError(f"[14a] {name}: SA or LCP differs from "
+                             "SA-IS/Kasai")
+    lcp_path, finish = LCP_ROUTES[name]
+    if ((res.get("lcp_path"), res.get("lcp_finish")) != (lcp_path, finish)
+            or bool(res.get("lcp_declined")) != (lcp_path == "plcp")):
+        raise AssertionError(f"[14a] {name}: LCP route {res}")
+    check_launches(counts, f"[14a] {name}")
+    route = {k: res.get(k) for k in ("path", "lcp_path", "lcp_misses",
+                                     "lcp_finish", "lcp_declined",
+                                     "plcp_rounds")}
+    phase(f"[14a] cli.run n=6 MiB {name}: Valid suffix array: YES; SA == "
+          f"SA-IS, LCP == Kasai; {json.dumps(route)}; SA "
+          f"{res['sa_time']:.4f} s, LCP+LRS {res['lcp_time']:.4f} s; "
+          f"launches {json.dumps(counts)} ({card})")
+    t = as_byte_tensor(text, "cuda")
+    k1 = sorted_k1_launches(text)
+    for fetch in ("sorted", "window"):
+        info: dict = {}
+        with env(SA_LCP_FETCH=fetch):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            lcp = build_lcp_array(text, arrays["sa"], device="cuda",
+                                  info=info, text_dev=t)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launches()
+        if not np.array_equal(lcp.cpu().numpy(), want_lcp):
+            raise AssertionError(f"[14a] {name} {fetch}: LCP != Kasai")
+        want_path = fetch if lcp_path != "plcp" else "plcp"
+        want_k1 = k1 if fetch == "sorted" else 0
+        if info["lcp_path"] != want_path or counts["pack_words"] != want_k1:
+            raise AssertionError(f"[14a] {name} {fetch}: {info}, K1 "
+                                 f"{counts['pack_words']} != {want_k1}")
+        phase(f"[14a] build_lcp_array n=6 MiB {name}, SA_LCP_FETCH={fetch}:"
+              f" LCP == Kasai; lcp_path {info['lcp_path']}, misses "
+              f"{info.get('lcp_misses')}, finish {info.get('lcp_finish')}, "
+              f"refusal {info.get('lcp_declined')!r}; {dt * 1e3:.2f} ms; K1 "
+              f"launches {counts['pack_words']} ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plcp, rounds = plcp_kernel(t, arrays["sa"])
+    lcp = lcp_from_plcp(plcp, arrays["sa"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not np.array_equal(lcp.cpu().numpy(), want_lcp):
+        raise AssertionError(f"[14a] {name}: PLCP != Kasai")
+    phase(f"[14a] PLCP n=6 MiB {name} on the same SA: LCP == Kasai; "
+          f"{dt * 1e3:.2f} ms ({rounds} rounds) ({card})")
+    return want_sa
+
+
+def warm_times(fn, reps: int = 3) -> list[float]:
+    """Host-clock seconds of ``reps`` calls of ``fn`` after a warm-up
+    call, each fenced by a device synchronise."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def lcp_full(text: np.ndarray, ref: dict, card: str) -> dict:
+    """[14b] 2^28 random alnum (phase 5's text): the sorted-fetch and
+    window routes against phase 5's LCP, byte for byte, warm, with the
+    peak above the inputs and K1's launches; PLCP on the same SA; then
+    K1 alone at the route's shape (contiguous words and the row-major
+    table) and the gather into SA order, each beside its bound."""
+    n = len(text)
+    torch.cuda.empty_cache()
+    t = as_byte_tensor(text, "cuda")
+    sa = ref["sa"].to("cuda")
+    want = ref["lcp"].to("cuda")
+    out = {}
+    for route, prepare, build in (
+            ("sorted", lambda: prepare_lcp_sorted(text, t, device="cuda"),
+             build_lcp_array_sorted),
+            ("window", lambda: prepare_lcp(text, device="cuda", text_dev=t),
+             build_lcp_array_window)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = prepare()
+        got = build(text, sa, state)
+        counts = launches()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[14b] {route}: LCP differs from phase "
+                                 "5's")
+        del got
+        peak = torch.cuda.max_memory_allocated() - base
+        times = warm_times(lambda: build(text, sa, state))
+        out[route] = {"s": statistics.median(times), "times": times,
+                      "peak": peak, "k1": counts["pack_words"],
+                      "state": state}
+        phase(f"[14b] {route} route n=2^28 random alnum: LCP == phase 5's, "
+              f"byte for byte; warm median of 3 {out[route]['s']:.4f} s "
+              f"({', '.join(f'{x:.4f}' for x in times)}); peak "
+              f"{peak / 2**30:.2f} GiB above the text and SA "
+              f"({peak / n:.1f} B a row); K1 launches "
+              f"{counts['pack_words']} ({card})")
+    sorted_state = out["sorted"]["state"]
+    if out["sorted"]["k1"] != sorted_k1_launches(text):
+        raise AssertionError(f"[14b] sorted: K1 {out['sorted']['k1']}")
+    del out["window"]["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plcp, rounds = plcp_kernel(t, sa)
+    lcp = lcp_from_plcp(plcp, sa)
+    torch.cuda.synchronize()
+    plcp_s = time.perf_counter() - t0
+    if not torch.equal(lcp, want):
+        raise AssertionError("[14b] PLCP differs from phase 5's")
+    del plcp, lcp
+    phase(f"[14b] PLCP on the same SA: {plcp_s:.4f} s ({rounds} rounds); "
+          f"sorted / PLCP {out['sorted']['s'] / plcp_s:.3f} ({card})")
+    # K1 alone at the route's shape.
+    st = sorted_state
+    nw, spw, bits, table = st["wn"], st["spw"], st["bits"], st["table"]
+    if nw > 3:
+        raise AssertionError(f"[14b] wn {nw}: one K1 launch expected")
+    plain = pack_words_reference(t, table, bits, spw, n, nw)
+    err = exact(pack_words(t, table, bits, spw, n, nw), plain,
+                "[14b] K1 words")
+    tab = torch.empty((n, nw), dtype=torch.int32, device="cuda")
+    cols = [tab[:, w] for w in range(nw)]
+    err = max(err, exact(pack_words(t, table, bits, spw, n, nw, out=cols),
+                         plain, "[14b] K1 table"))
+    del plain
+    k1 = {"rows": n, "n_words": nw, "max_abs_err": err,
+          "ms": median_ms(lambda _: pack_words(t, table, bits, spw, n, nw)),
+          "table_ms": median_ms(lambda _: pack_words(
+              t, table, bits, spw, n, nw, out=cols)),
+          "plain_ms": median_ms(lambda _: pack_words_reference(
+              t, table, bits, spw, n, nw))}
+    k1.update(k1_bound(k1))
+    del tab, cols
+    word = sorted_words(st)[0]
+    gather_ms = median_ms(lambda _: torch.index_select(word, 0, sa))
+    gather_bound = bound(3 * 4 * n, 0)["bound_ms"]
+    phase(f"[14b] K1 n=2^28 random alnum, the route's shape ({nw} words, "
+          f"spw {spw}): exact; contiguous words {k1['ms']:.3f} ms, into a "
+          f"row-major ({nw}) table {k1['table_ms']:.3f} ms, plain "
+          f"{k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms; the "
+          f"gather of one word into SA order {gather_ms:.3f} ms, bound "
+          f"{gather_bound:.3f} ms ({card})")
+    k1.update(launches=out["sorted"]["k1"], gather_ms=gather_ms,
+              gather_bound_ms=gather_bound)
+    return k1
+
+
+def lcp_routes(sharded_ref: tuple, card: str) -> dict:
+    """Phase 14: the window and sorted-fetch LCP routes and the
+    SA_CHAIN_MIN branch. Returns K1's numbers at [14b]'s shape."""
+    t14 = time.perf_counter()
+    texts = {k: v.cpu().numpy() for k, v in lcp_corpora().items()}
+    sas = {name: lcp_cli(name, text, card) for name, text in texts.items()}
+    torch.cuda.empty_cache()
+    k1 = lcp_full(*sharded_ref, card)
+    torch.cuda.empty_cache()
+    # [14c] the SA_CHAIN_MIN branch, alive once SA_BIG_THRESHOLD is above
+    # the text: deep repeats take the carried keys, the rest doubling.
+    with env(SA_BIG_THRESHOLD=CHAIN_BIG):
+        for name, path in (("repetitive p1000", "direct"),
+                           ("random alnum", "doubling")):
+            arrays: dict = {}
+            buf = io.StringIO()
+            res = cli_run(texts[name], f"{name}_6MiB", "cuda", validate=True,
+                          dialect="sequential", out=buf, arrays=arrays)
+            report = buf.getvalue()
+            if (f"PATH:{path}\n" not in report
+                    or "Valid suffix array: YES" not in report
+                    or not np.array_equal(arrays["sa"].cpu().numpy(),
+                                          sas[name])):
+                raise AssertionError(f"[14c] {name}: not PATH:{path} with "
+                                     f"[14a]'s SA:\n{report}")
+            phase(f"[14c] SA_BIG_THRESHOLD={CHAIN_BIG} cli.run n=6 MiB "
+                  f"{name}: PATH:{res['path']} chain_mode="
+                  f"{res.get('chain_mode')}; SA == [14a]'s; SA "
+                  f"{res['sa_time']:.4f} s ({card})")
+    # [14d] python -m runs the CLI, on the card by default.
+    proc = subprocess.run([sys.executable, "-m", "hpc_suffix_array_tpu_torch",
+                           "banana"], capture_output=True, text=True,
+                          timeout=300)
+    if (proc.returncode != 0
+            or "Longest repeated substring: 'ana' (length: 3)"
+            not in proc.stdout or "IMPLEMENTATION:cuda\n" not in proc.stdout):
+        raise AssertionError(f"[14d] python -m: {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    phase(f"[14d] python -m hpc_suffix_array_tpu_torch banana: Longest "
+          f"repeated substring: 'ana' (length: 3), IMPLEMENTATION:cuda "
+          f"({card})")
+    phase(f"[14] LCP routes: {time.perf_counter() - t14:.1f} s")
+    return k1
+
+
 def main() -> int:
     # 1) device
     if not torch.cuda.is_available():
@@ -1715,12 +1984,16 @@ def main() -> int:
     # 13) the multi-process path; the kernels are built, the workers load
     t13 = time.perf_counter()
     mp_launches = mp_nccl(*sharded_ref, sharded_launches, card)
-    del sharded_ref
     torch.cuda.empty_cache()
     mp_gloo(card)
     torch.cuda.empty_cache()
     mp_weak(card)
     phase(f"[13] multi-process path: {time.perf_counter() - t13:.1f} s")
+
+    # 14) the window and sorted-fetch LCP routes, the SA_CHAIN_MIN branch
+    torch.cuda.empty_cache()
+    lcp_k1 = lcp_routes(sharded_ref, card)
+    del sharded_ref
 
     n = FULL_N
     tiles = n // 4096
@@ -1734,12 +2007,16 @@ def main() -> int:
          "sharded_launches": (sharded_launches["pack_ranks"]
                               + sharded_launches["pack_words"]),
          "mp_launches": mp_launches["pack_ranks"] + mp_launches["pack_words"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
+         "lcp_sorted_launches": lcp_k1["launches"],
+         "max_abs_err": max([r["max_abs_err"] for r in k1.values()]
+                            + [lcp_k1["max_abs_err"]]),
          "ms": k1["word1"]["ms"], "plain_ms": k1["word1"]["plain_ms"],
          **k1_bound(k1["word1"]),
          **{f"{mode}_{key}": k1[mode][key]
             for mode in ("word0", "view3", "two_words", "pk2")
-            for key in ("ms", "plain_ms", "bound_ms")}},
+            for key in ("ms", "plain_ms", "bound_ms")},
+         **{f"lcp_sorted_{key}": lcp_k1[key]
+            for key in ("ms", "table_ms", "plain_ms", "bound_ms")}},
         {"name": "digit_histograms", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/onesweep.cu",
          "replaces": "experiments/radix_write.py:213",

@@ -3,8 +3,9 @@
 The counterpart of ``hpc_suffix_array_tpu`` on an NVIDIA Hopper card:
 the prefix-doubling builder (texts up to 4 MiB, and the fallback), the
 direct carried-keys SA+LCP builder (above 4 MiB), the MSD bucket
-builder (texts the direct route cannot hold), PLCP LCP array,
-longest repeated substring and the O(n) validator. Hand-written CUDA
+builder (texts the direct route cannot hold), the LCP array (from the
+carried keys, the sorted-fetch or window routes, or PLCP), longest
+repeated substring and the O(n) validator. Hand-written CUDA
 kernels carry the key folds (``csrc/pack.cu``) and the carried-keys
 radix sort (``csrc/onesweep.cu``). ``parallel/`` is the sharded backend:
 the same build, LCP and validator block-sharded over a mesh of P shards.
@@ -20,12 +21,17 @@ from hpc_suffix_array_tpu_torch.core.lrs import find_longest_repeated_substring
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     SuffixArray, build_suffix_array)
 from hpc_suffix_array_tpu_torch.core.validate import is_valid_suffix_array
+from hpc_suffix_array_tpu_torch.parallel import (
+    build_sa_lcp_sharded, build_suffix_array_sharded, make_mesh)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "SuffixArray",
     "build_suffix_array",
+    "build_suffix_array_sharded",
+    "build_sa_lcp_sharded",
+    "make_mesh",
     "build_suffix_array_big",
     "build_suffix_array_direct",
     "build_lcp_array",

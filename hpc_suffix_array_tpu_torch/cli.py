@@ -68,9 +68,11 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
     """Build SA + LCP + LRS with per-phase timing; print the full report.
 
     Returns the structured-results dict (also printed as text blocks),
-    with the doubling and PLCP round counts, and the carried-keys
-    build's chain mode, word count and refinement keys where it ran
-    (``declined`` where it fell back). ``arrays``: optional
+    with the doubling and PLCP round counts, the carried-keys build's
+    chain mode, word count and refinement keys where it ran
+    (``declined`` where it fell back), and the LCP's route keys
+    (``lcp_path``, ``lcp_misses``, ``lcp_finish``, ``lcp_declined``;
+    see ``build_lcp_array``). ``arrays``: optional
     dict that receives the ``sa`` and ``lcp`` tensors.
 
     ``backend`` "sharded" builds over ``mesh`` (a ``parallel.Mesh``), or
@@ -177,7 +179,8 @@ def run(text: np.ndarray, filename: str, device, validate: bool,
     }
     for key in ("path", "chain_mode", "n_words", "declined",
                 "refine_members", "refine_pieces", "refine_rounds",
-                "refine_host_members", "refine_phase_s"):
+                "refine_host_members", "refine_phase_s", "lcp_path",
+                "lcp_misses", "lcp_finish", "lcp_declined"):
         if key in info:
             results[key] = info[key]
     if info.get("rerun"):

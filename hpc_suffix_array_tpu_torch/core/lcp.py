@@ -15,17 +15,24 @@ lower bound, improved each round by three steps:
 The loop is host-driven (one ``resolved.all()`` sync per round), as in
 the JAX package.
 
-The carried-keys routes (``_sa_lcp_big``, ``build_sa_lcp``) take the LCP
-from the direct or MSD builder's sorted keys (``core/bigsort.py``,
-``want_lcp``):
-``build_lcp_array`` uses them above ``SA_LCP_BIG_MIN`` and for texts of
-deep repeats between ``SA_LCP_CHAIN_MIN`` and ``SA_LCP_WINDOW_MIN``, and
-PLCP otherwise. The JAX package's window and sorted-fetch routes are not
-ported: where it would take them, the port keeps PLCP. Past the
-doubling reach, where no carried-keys build derived the LCP, host Kasai
-on the supplied SA closes it (``lcp_path`` "kasai_host"), as host SA-IS
-and Kasai close ``build_sa_lcp``: PLCP's int32 positions stop at
-``PLCP_MAX``.
+The router follows the JAX package's ``build_lcp_array``:
+
+  * above ``SA_LCP_BIG_MIN``, and for texts of deep repeats between
+    ``SA_LCP_CHAIN_MIN`` and ``SA_LCP_WINDOW_MIN``, the LCP of a
+    carried-keys build (``_sa_lcp_big``: the direct or MSD builder's
+    sorted keys, ``core/bigsort.py``, ``want_lcp``);
+  * above ``SA_LCP_WINDOW_MIN``, when no carried-keys build derived it,
+    the sorted-fetch route (``core/lcp_window.py``), or the window route
+    under ``SA_LCP_FETCH=window``;
+  * PLCP otherwise, and where the window routes refuse a text (too many
+    irregular misses) at any n. The JAX package re-raises that refusal
+    above ``SA_LCP_PLCP_MAX``, a TPU compile limit the port does not
+    have.
+
+Past the doubling reach, where no carried-keys build derived the LCP
+and the window routes refused, host Kasai on the supplied SA closes it
+(``lcp_path`` "kasai_host"), as host SA-IS and Kasai close
+``build_sa_lcp``: PLCP's int32 positions stop at ``PLCP_MAX``.
 """
 
 from __future__ import annotations
@@ -64,9 +71,16 @@ def lcp_big_min() -> int:
 
 
 def lcp_window_min() -> int:
-    """Above this (``SA_LCP_WINDOW_MIN``, 4 MiB) the JAX package takes
-    its window route, which the port replaces by PLCP."""
+    """Above this (``SA_LCP_WINDOW_MIN``, 4 MiB): the sorted-fetch or
+    window route."""
     return int(os.environ.get("SA_LCP_WINDOW_MIN", 1 << 22))
+
+
+def lcp_fetch() -> str:
+    """``SA_LCP_FETCH``: "window" picks the window route, anything else
+    (default "sorted") the sorted-fetch route."""
+    return ("window" if os.environ.get("SA_LCP_FETCH", "sorted") == "window"
+            else "sorted")
 
 
 def lcp_chain_min() -> int:
@@ -216,16 +230,62 @@ def _kasai_host(host: np.ndarray, sa: torch.Tensor,
     return torch.from_numpy(native.lcp_kasai(host, sa.cpu().numpy())).to(dev)
 
 
+def _fetch_lcp(text, t: torch.Tensor, sa: torch.Tensor,
+               info: dict | None):
+    """The sorted-fetch or window route (``lcp_fetch``), or None when it
+    refuses the text; ``info`` receives ``lcp_path``, ``lcp_misses`` and
+    ``lcp_finish``, or ``lcp_declined``."""
+    from hpc_suffix_array_tpu_torch.core import lcp_window
+
+    route = lcp_fetch()
+    fetch = {}
+    try:
+        if route == "window":
+            lcp = lcp_window.build_lcp_array_window(
+                text, sa, device=t.device, text_dev=t, info=fetch)
+        else:
+            lcp = lcp_window.build_lcp_array_sorted(
+                text, sa, device=t.device, text_pad_dev=t, info=fetch)
+    except NotImplementedError as e:
+        if info is not None:
+            info["lcp_declined"] = str(e)
+        return None
+    if info is not None:
+        info.update(fetch, lcp_path=route)
+    return lcp
+
+
+def _lcp_of_sa(text, t: torch.Tensor, sa: torch.Tensor,
+               info: dict | None) -> torch.Tensor:
+    """The LCP of ``sa`` where no carried-keys build derived it: the
+    sorted-fetch or window route above ``SA_LCP_WINDOW_MIN``; where that
+    refuses or below it, PLCP, or host Kasai past the doubling reach."""
+    n = t.shape[0]
+    if n > lcp_window_min():
+        lcp = _fetch_lcp(text, t, sa, info)
+        if lcp is not None:
+            return lcp
+    if n > doubling_reach():
+        if info is not None:
+            info["lcp_path"] = "kasai_host"
+        return _kasai_host(as_byte_array(text), sa, t.device)
+    if info is not None:
+        info["lcp_path"] = "plcp"
+    return _plcp_lcp(t, sa, info)
+
+
 def build_sa_lcp(text, *, device, info: dict | None = None,
                  text_dev: torch.Tensor | None = None):
     """Fused (suffix array, LCP array) build, int32[n] each.
 
     Above ``SA_LCP_BIG_MIN`` this is one carried-keys pass; when that
-    declines, the doubling builder and PLCP run directly (no second
-    carried-keys attempt) up to ``DOUBLING_REACH``, and host SA-IS and
-    Kasai above it. Below it, ``build_suffix_array`` and
+    declines, the doubling builder runs directly (no second carried-keys
+    attempt) and the LCP takes ``build_lcp_array``'s other routes (the
+    sorted-fetch or window route, else PLCP) up to ``DOUBLING_REACH``;
+    host SA-IS and Kasai above it. Below it, ``build_suffix_array`` and
     ``build_lcp_array`` run back to back. ``text_dev`` and ``info`` as
-    in ``build_suffix_array``."""
+    in ``build_suffix_array``, plus ``build_lcp_array``'s ``lcp_*``
+    keys on the decline path."""
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]
@@ -236,7 +296,7 @@ def build_sa_lcp(text, *, device, info: dict | None = None,
         if n > doubling_reach():
             return _sais_kasai(text, dev, info)
         sa = build_suffix_array_doubling(t, device=dev, info=info)
-        return sa, _plcp_lcp(t, sa, info)
+        return sa, _lcp_of_sa(text, t, sa, info)
     sa = build_suffix_array(text, device=dev, info=info, text_dev=t)
     return sa, build_lcp_array(text, sa, device=dev, info=info, text_dev=t)
 
@@ -260,10 +320,16 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
     carried-keys build (direct or MSD), which derives the order from the
     text itself: the supplied ``sa`` is then checked against the derived
     one, and a mismatch raises ValueError. Otherwise, and when that build
-    declines, PLCP up to the doubling reach and host Kasai on ``sa``
-    past it. ``text_dev`` as in ``build_suffix_array``.
+    declines, the routes of ``_lcp_of_sa``: above ``SA_LCP_WINDOW_MIN``
+    the sorted-fetch route (``SA_LCP_FETCH=window``: the window route),
+    and where it refuses or below it PLCP up to the doubling reach and
+    host Kasai on ``sa`` past it. ``text_dev`` as in
+    ``build_suffix_array``.
     ``info``: optional dict that receives ``lcp_path`` ("direct", "msd",
-    "plcp" or "kasai_host") and, for PLCP, ``plcp_rounds``."""
+    "sorted", "window", "plcp" or "kasai_host"); for the sorted-fetch
+    and window routes ``lcp_misses`` (pairs past the window) and
+    ``lcp_finish`` ("none", "chain" or "host"); ``lcp_declined`` (why
+    they refused); for PLCP, ``plcp_rounds``."""
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]
@@ -293,10 +359,4 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
         if info is not None:
             info["lcp_path"] = route["path"]
         return lcp
-    if n > doubling_reach():
-        if info is not None:
-            info["lcp_path"] = "kasai_host"
-        return _kasai_host(as_byte_array(text), sa, dev)
-    if info is not None:
-        info["lcp_path"] = "plcp"
-    return _plcp_lcp(t, sa, info)
+    return _lcp_of_sa(text, t, sa, info)

@@ -15,7 +15,8 @@ Differences from the JAX version:
     against the JAX kernel fed the same unpadded initial ranks.
 
 ``build_suffix_array`` routes as the JAX package's does above
-``SA_BIG_THRESHOLD`` (4 MiB): to the direct carried-keys builder
+``SA_BIG_THRESHOLD`` (4 MiB), and above ``SA_CHAIN_MIN`` (4 MiB) for
+texts of deep repeats: to the direct carried-keys builder
 (``core/bigsort.py``, with device tie refinement) when ``prefer_direct``
 holds, otherwise or when it declines to the MSD bucket builder (same
 module), and when that declines to the doubling builder
@@ -55,6 +56,13 @@ def big_threshold() -> int:
     """Texts above this many bytes (``SA_BIG_THRESHOLD``, 4 MiB, a
     threshold set on a TPU) try the carried-keys builder first."""
     return int(os.environ.get("SA_BIG_THRESHOLD", 1 << 22))
+
+
+def chain_min() -> int:
+    """Texts above this many bytes (``SA_CHAIN_MIN``, 4 MiB, a threshold
+    set on a TPU) but not above ``big_threshold()`` try the carried-keys
+    builder when their repeats are deep (``deep_repeat_class``)."""
+    return int(os.environ.get("SA_CHAIN_MIN", 1 << 22))
 
 
 def doubling_reach() -> int:
@@ -242,7 +250,8 @@ def build_suffix_array(text, *, device, info: dict | None = None,
     tensor), built on ``device``.
 
     ``text_dev``: optional uint8 copy of the same bytes on ``device``
-    (see ``device_text``). Above ``SA_BIG_THRESHOLD`` the router plans
+    (see ``device_text``). Above ``SA_BIG_THRESHOLD``, and above
+    ``SA_CHAIN_MIN`` for deep-repeat texts, the router plans
     on the host bytes, so pass ``text`` as a host array and the device
     copy here: a device tensor as ``text`` costs a copy to the host.
 
@@ -253,17 +262,20 @@ def build_suffix_array(text, *, device, info: dict | None = None,
     carried-keys builder fell back) or ``rounds``."""
     t = device_text(text, device, text_dev)
     n = t.shape[0]
-    if n > big_threshold():
+    if n > big_threshold() or n > chain_min():
         from hpc_suffix_array_tpu_torch.core import bigsort
 
         arr = as_byte_array(text)
-        # One alphabet and repeat scan feeds the gate and the builder.
-        remap, _, _ = alphabet_remap_dev(t)
+        # One repeat scan (and alphabet count) feeds the gate and the
+        # builder. Between the two thresholds only deep repeats, which
+        # no one-pass window resolves, take the carried keys.
         est = bigsort.estimate_repeat_len(arr)
-        out = carried_keys_build(arr, n, t, remap, est, info,
-                                 want_lcp=False)
-        if out is not None:
-            return out
+        if n > big_threshold() or bigsort.deep_repeat_class(est):
+            remap, _, _ = alphabet_remap_dev(t)
+            out = carried_keys_build(arr, n, t, remap, est, info,
+                                     want_lcp=False)
+            if out is not None:
+                return out
     if n > doubling_reach():
         return sais_host_fallback(text, device=t.device, info=info)
     return build_suffix_array_doubling(t, device=t.device, info=info)

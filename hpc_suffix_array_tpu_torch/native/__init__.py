@@ -1,12 +1,12 @@
 """Native host helpers (SA-IS, Kasai, the O(n) validator) via ctypes,
 JAX-free.
 
-Compiles the JAX package's ``native/sais.c``, read by path, into the
-repository's ``build/native/`` directory on first use, keyed by a hash
-of the source. Importing ``hpc_suffix_array_tpu.native`` instead would
-run that package's ``__init__``, which imports jax. A build failure
-raises: these helpers are the port's correctness oracle, and an oracle
-that silently went missing would turn checks into no-ops.
+Compiles this package's own copy of the C source (``native/sais.c``,
+the same file as the JAX package's) into the repository's
+``build/native/`` directory on first use, keyed by a hash of the
+source. A build failure raises: these helpers are the port's
+correctness oracle, and an oracle that silently went missing would turn
+checks into no-ops.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ import tempfile
 
 import numpy as np
 
-_ROOT = pathlib.Path(__file__).resolve().parents[2]
-SAIS_SRC = _ROOT / "hpc_suffix_array_tpu" / "native" / "sais.c"
-BUILD_DIR = _ROOT / "build" / "native"
+_HERE = pathlib.Path(__file__).resolve().parent
+SAIS_SRC = _HERE / "sais.c"
+BUILD_DIR = _HERE.parents[1] / "build" / "native"
 _lib = None
 
 

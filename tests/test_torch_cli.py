@@ -237,3 +237,38 @@ def test_sharded_failed_build_names_the_backend(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "STATUS:FAILED" in out
     assert "IMPLEMENTATION:torch_cpu_sharded" in out
+
+
+@pytest.mark.parametrize("fetch", ["sorted", "window"])
+def test_run_reports_the_lcp_route(monkeypatch, fetch):
+    """Above a lowered SA_LCP_WINDOW_MIN the CLI's LCP takes the
+    sorted-fetch (or window) route; the report equals the JAX CLI's and
+    the results carry the route's keys."""
+    monkeypatch.setenv("SA_LCP_WINDOW_MIN", "2000")
+    monkeypatch.setenv("SA_LCP_FETCH", fetch)
+    alnum = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+    text = np.tile(alnum[np.random.default_rng(3).integers(0, 36, 700)], 8)
+    got, want = io.StringIO(), io.StringIO()
+    res = cli.run(text, "periodic.txt", "cpu", validate=True,
+                  dialect="sequential", out=got)
+    jax_cli.run(text, "periodic.txt", "single", None, validate=True,
+                dialect="sequential", out=want)
+    assert _comparable(got.getvalue()) == _comparable(want.getvalue())
+    assert (res["lcp_path"], res["lcp_finish"]) == (fetch, "chain")
+    assert res["lcp_misses"] > 0 and "lcp_declined" not in res
+
+
+def test_python_dash_m_runs_the_cli():
+    """``python -m hpc_suffix_array_tpu_torch`` is the port's CLI."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "hpc_suffix_array_tpu_torch", "banana",
+         "--device", "cpu"], cwd=root, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "Longest repeated substring: 'ana' (length: 3)" in proc.stdout
+    assert "IMPLEMENTATION:torch_cpu" in proc.stdout

@@ -19,7 +19,24 @@ import hpc_suffix_array_tpu_torch as tsa
 import hpc_suffix_array_tpu_torch.cli as cli
 import hpc_suffix_array_tpu_torch.core.bigsort as bigsort
 import hpc_suffix_array_tpu_torch.kernels.radix as radix
+import hpc_suffix_array_tpu_torch.core.lcp_window as lcp_window
 sa = tsa.build_suffix_array(b"banana", device="cpu")
+for build in (lcp_window.build_lcp_array_window,
+              lcp_window.build_lcp_array_sorted):
+    assert build(b"banana", sa, device="cpu").tolist() == [0, 1, 3, 0, 0, 2]
+import contextlib, io, runpy
+argv, sys.argv = sys.argv, ["hpc_suffix_array_tpu_torch", "banana",
+                            "--device", "cpu"]
+buf = io.StringIO()
+try:
+    with contextlib.redirect_stdout(buf):
+        runpy.run_module("hpc_suffix_array_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+else:
+    raise AssertionError("__main__ did not exit")
+sys.argv = argv
+assert "'ana' (length: 3)" in buf.getvalue(), buf.getvalue()
 assert sa.tolist() == [5, 3, 1, 0, 4, 2], sa
 assert cli.main(["banana", "--device", "cpu", "--no-validate"]) == 0
 sa, lcp = tsa.build_suffix_array_direct(b"mississippi", device="cpu",

@@ -134,9 +134,18 @@ Drives the port's main paths on the card and checks them:
      order, each beside its bound; (c) with SA_BIG_THRESHOLD = 16 MiB,
      p1000 at 6 MiB on PATH:direct with (a)'s SA, alnum on
      PATH:doubling; (d) ``python -m hpc_suffix_array_tpu_torch banana``
-     on the card.
+     on the card;
+ 15. the headline benchmark: ``python3 bench_cuda.py`` at its defaults in
+     a process of its own: one stdout line at 2^30 on the MSD route
+     with no OOM fallback and the host SA-IS baseline, the six secondary
+     metrics (sa_lcp_build, sa_build_dna, sa_build_repetitive_p1000,
+     sa_build_words, lcp_build, lcp_build_sorted_fetch) each on its
+     route with a positive value, words refined, and the kernels'
+     launches the bench counted (K1, digit_histograms and onesweep_pass
+     launched; K2 and K3 not); every metric line is printed, and the
+     headline's build time beside [8c]'s CLI SA_TIME.
 
-Phases 10 to 13 write under build/smoke.
+Phases 10 to 13 and 15 write under build/smoke.
 
 The K1 launches of the CLI runs are checked exactly: one (two key
 words) for 2^28 alnum, two (three key words, then the pair table) for
@@ -152,7 +161,8 @@ its ``harness_launches`` from the twin sweep of phase 10, its
 ``sharded_launches`` from the sharded CLI run of phase 12b and its
 ``mp_launches`` from the multi-process CLI run of phase 13a (K1 also
 its ``lcp_sorted_launches``, from the sorted-fetch LCP of phase 14b,
-and its times at that shape), with
+and its times at that shape) and its ``headline_launches`` from the
+headline benchmark of phase 15, with
 its bound: the larger of the bytes the timed call must move (each input
 read once, each output written once) over 3.35 TB/s and its integer
 operations over 67 T/s (the H100 SXM data sheet's HBM rate and its
@@ -165,6 +175,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import io
 import json
 import os
@@ -288,6 +299,17 @@ LCP_ROUTES = {"random alnum": ("sorted", "none"), "DNA": ("sorted", "none"),
               "repetitive p1000": ("sorted", "chain"),
               "words": ("plcp", None)}
 CHAIN_BIG = 1 << 24
+# Phase 15, the headline benchmark (bench_cuda.py at its defaults): each
+# secondary metric, the key that names its route and the route it must
+# take at 2^30 (DNA and the LCP metrics at 2^28).
+HEADLINE_ROUTES = {
+    "sa_lcp_build": ("path", "msd_bigsort_want_lcp"),
+    "sa_build_dna": ("path", "direct_sort"),
+    "sa_build_repetitive_p1000": ("path", "msd_chain"),
+    "sa_build_words": ("path", "msd_bigsort"),
+    "lcp_build": ("lcp_path", "direct"),
+    "lcp_build_sorted_fetch": ("path", "sorted_fetch_standalone"),
+}
 CORPORA = (("random alnum", generate_random_text),
            ("DNA", generate_dna_text),
            ("repetitive p1000", generate_repetitive_text),
@@ -1735,6 +1757,68 @@ def lcp_routes(sharded_ref: tuple, card: str) -> dict:
     return k1
 
 
+def headline_bench(cli_sa_time: float, card: str) -> dict:
+    """Phase 15: ``python3 bench_cuda.py`` at its defaults in a process
+    of its own. Checks its one stdout line (2^30, the MSD route, no OOM
+    fallback, the host SA-IS baseline), the six secondary metrics on
+    their routes and its kernels' launch counts (the bench prints them);
+    prints every metric line. Returns the launch counts."""
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve().parent
+                             / "bench_cuda.py")],
+        capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items()
+             if not k.startswith("SA_")})
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "headline.err").write_text(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"[15] bench_cuda.py exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"[15] bench_cuda.py stdout:\n{proc.stdout}")
+    line = json.loads(lines[0])
+    if (line.get("metric") != "suffix_array_build_throughput"
+            or line.get("n") != MSD_N or line.get("path") != "msd_bigsort"
+            or "oom_fallback" in line or not line.get("value", 0) > 0
+            or line.get("baseline") != "host_sais"
+            or not line.get("vs_baseline", 0) > 0):
+        raise AssertionError(f"[15] headline line: {line}")
+    recs, launches = {}, None
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("{"):
+            rec = json.loads(ln)
+            recs[rec["metric"]] = rec
+            phase(f"[15] {ln}")
+        elif ln.startswith("# launches: "):
+            launches = json.loads(ln[len("# launches: "):])
+        elif ln.startswith("#"):
+            phase(f"[15] {ln}")
+    for metric, (key, want) in HEADLINE_ROUTES.items():
+        rec = recs.get(metric)
+        if not rec or not rec["value"] > 0 or rec.get(key) != want:
+            raise AssertionError(f"[15] {metric}: {rec}, want {key} {want}")
+    if not recs["sa_build_words"].get("refine_members"):
+        raise AssertionError(f"[15] words did not refine: "
+                             f"{recs['sa_build_words']}")
+    if (launches is None
+            or any(launches[k] == 0 for k in (
+                "pack_ranks", "pack_words", "digit_histograms",
+                "onesweep_pass"))
+            or launches["block_digit_sort"] or launches["place_runs"]):
+        raise AssertionError(f"[15] launches {launches}")
+    secs = line["n"] / (line["value"] * 1e6)
+    phase(f"[15] {lines[0]}")
+    phase(f"[15] headline: build {secs:.3f} s at 2^30 random alnum "
+          f"(best of 3, timed replan + execute_big) beside [8c]'s CLI "
+          f"SA_TIME {cli_sa_time:.3f} s (staging and alphabet included); "
+          f"launches {json.dumps(launches)} ({card})")
+    phase(f"[15] headline benchmark: {time.perf_counter() - t15:.1f} s")
+    return launches
+
+
 def main() -> int:
     # 1) device
     if not torch.cuda.is_available():
@@ -1937,6 +2021,7 @@ def main() -> int:
     if peak >= DIRECT_PEAK_2E30:
         raise AssertionError(f"MSD 2^30 peak {peak / 2**30:.2f} GiB is not "
                              "below the direct route's 56.00 GiB")
+    msd_sa_time = res["sa_time"]
     phase(f"[8c] cli.run n=2^30 random alnum: Valid suffix array: YES; "
           f"PATH:{res['path']}; SA_TIME {res['sa_time']:.3f} s, TOTAL_TIME "
           f"{res['total_time']:.3f} s; peak {peak / 2**30:.2f} GiB; "
@@ -1995,6 +2080,10 @@ def main() -> int:
     lcp_k1 = lcp_routes(sharded_ref, card)
     del sharded_ref
 
+    # 15) the headline benchmark, bench_cuda.py, in a process of its own
+    gc.collect()
+    headline_counts = headline_bench(msd_sa_time, card)
+
     n = FULL_N
     tiles = n // 4096
     print(json.dumps({"kernels": [
@@ -2007,6 +2096,8 @@ def main() -> int:
          "sharded_launches": (sharded_launches["pack_ranks"]
                               + sharded_launches["pack_words"]),
          "mp_launches": mp_launches["pack_ranks"] + mp_launches["pack_words"],
+         "headline_launches": (headline_counts["pack_ranks"]
+                               + headline_counts["pack_words"]),
          "lcp_sorted_launches": lcp_k1["launches"],
          "max_abs_err": max([r["max_abs_err"] for r in k1.values()]
                             + [lcp_k1["max_abs_err"]]),
@@ -2024,6 +2115,7 @@ def main() -> int:
          "harness_launches": harness_counts["digit_histograms"],
          "sharded_launches": sharded_launches["digit_histograms"],
          "mp_launches": mp_launches["digit_histograms"],
+         "headline_launches": headline_counts["digit_histograms"],
          "max_abs_err": max(os_err["hist"], srt["hist_err"]),
          "ms": srt["hist_ms"], "plain_ms": srt["hist_plain_ms"],
          **bound(2 * 4 * n + 8 * 256 * 4, 4 * 8 * n)},
@@ -2034,6 +2126,7 @@ def main() -> int:
          "harness_launches": harness_counts["onesweep_pass"],
          "sharded_launches": sharded_launches["onesweep_pass"],
          "mp_launches": mp_launches["onesweep_pass"],
+         "headline_launches": headline_counts["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
          "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
          **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
@@ -2044,6 +2137,7 @@ def main() -> int:
          "harness_launches": harness_counts["block_digit_sort"],
          "sharded_launches": sharded_launches["block_digit_sort"],
          "mp_launches": mp_launches["block_digit_sort"],
+         "headline_launches": headline_counts["block_digit_sort"],
          "check_launches": one[3]["k23_launches"]["block_digit_sort"],
          "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
@@ -2055,6 +2149,7 @@ def main() -> int:
          "harness_launches": harness_counts["place_runs"],
          "sharded_launches": sharded_launches["place_runs"],
          "mp_launches": mp_launches["place_runs"],
+         "headline_launches": headline_counts["place_runs"],
          "check_launches": one[3]["k23_launches"]["place_runs"],
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],

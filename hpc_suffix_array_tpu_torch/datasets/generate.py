@@ -155,6 +155,42 @@ def device_dna_text(n: int, seed: int, device) -> torch.Tensor:
     return _device_draw(DNA, n, seed, device)
 
 
+def device_words_text(n: int, seed: int, device) -> torch.Tensor:
+    """The words corpus's distribution (``generate_words_text``: the same
+    vocabulary for the seed) made on ``device``: the Zipf-like word ids
+    are drawn by a ``torch.Generator`` of that device seeded with
+    ``seed``, 2^24 words at a time. A 2^30-byte host draw
+    (``generate_words_text_batched``) takes about a minute; this takes
+    milliseconds on a card."""
+    rng = np.random.default_rng(seed)
+    octaves = 14
+    vocab_size = 1 << octaves
+    tab, wl = _word_table(rng, vocab_size)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tab_t = torch.from_numpy(tab).to(dev)
+    wl_t = torch.from_numpy(wl).to(dev)
+    k = min(1 << 24, n // 3 + 1)        # a word's cell is at least 3 bytes
+    parts, total = [], 0
+    while total < n:
+        o = torch.randint(0, octaves, (k,), generator=g, device=dev)
+        r = torch.randint(0, 1 << 62, (k,), generator=g, device=dev)
+        low = torch.ones_like(o) << o
+        ids = (low + (r & (low - 1))).clamp_(max=vocab_size - 1)
+        lens = wl_t[ids]
+        ends = torch.cumsum(lens, 0)
+        take = min(int(ends[-1]), n - total)
+        cnt = int(torch.searchsorted(ends, take)) + 1     # words covering it
+        ids, lens, ends = ids[:cnt], lens[:cnt], ends[:cnt]
+        m = int(ends[-1])
+        intra = (torch.arange(m, device=dev)
+                 - torch.repeat_interleave(ends - lens, lens))
+        parts.append(tab_t[torch.repeat_interleave(ids, lens), intra][:take])
+        total += take
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8,
+                                                      device=dev)
+
+
 def device_repetitive_text(n: int, seed: int, device,
                            period: int = 1000) -> torch.Tensor:
     """``generate_repetitive_text``'s bytes, tiled on ``device`` from the

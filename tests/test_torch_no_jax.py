@@ -1,6 +1,7 @@
-"""The port runs without JAX: it imports neither jax nor the JAX package,
-and its measurement path (bench, utils, the text reports) runs without
-pandas and matplotlib."""
+"""The port runs without JAX: it imports neither jax nor the JAX package
+(nor ``bench.py``, the JAX package's headline), and its measurement path
+(bench, ``bench_cuda.py``, utils, the text reports) runs without pandas
+and matplotlib."""
 
 import pathlib
 import re
@@ -12,7 +13,7 @@ PKG = ROOT / "hpc_suffix_array_tpu_torch"
 
 BLOCKED_RUN = r"""
 import sys
-for name in ("jax", "jaxlib", "hpc_suffix_array_tpu", "pandas",
+for name in ("jax", "jaxlib", "hpc_suffix_array_tpu", "bench", "pandas",
              "matplotlib", "seaborn"):
     sys.modules[name] = None          # any import of these now fails
 import hpc_suffix_array_tpu_torch as tsa
@@ -118,6 +119,23 @@ with tempfile.TemporaryDirectory() as d:
     assert orchestrator.main(["--quick", "--device", "cpu", "--data-dir",
                               d + "/data", "--results-dir", d + "/res",
                               "--charts-dir", d + "/charts"]) == 1
+import json, os
+import hpc_suffix_array_tpu_torch.bench.headline as headline
+assert headline.bench_text(8).tobytes() == b"sw1TNJPV"
+os.environ.update(SA_BENCH_BYTES="4096", SA_BENCH_REPS="1",
+                  SA_BENCH_SECONDARY="0", SA_BENCH_BASELINE_BYTES="4096")
+argv, sys.argv = sys.argv, ["bench_cuda.py", "--device", "cpu"]
+buf = io.StringIO()
+try:
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path("bench_cuda.py", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+else:
+    raise AssertionError("bench_cuda.py did not exit")
+sys.argv = argv
+line = json.loads(buf.getvalue())
+assert (line["n"], line["baseline"]) == (4096, "host_sais"), line
 bad = [m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "pandas", "matplotlib", "seaborn")
        and sys.modules[m] is not None]
@@ -139,7 +157,8 @@ def test_measurement_path_imports_no_pandas_or_matplotlib():
     pattern = re.compile(
         r"^(\s*)(import|from)\s+(pandas|matplotlib|seaborn)(\.|\s|$)", re.M)
     offenders = []
-    for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "bench_cuda.py"]:
         for m in pattern.finditer(p.read_text()):
             inside_charts = (p.name == "charts.py" and m.group(1)
                              and m.group(3) == "matplotlib")
@@ -149,10 +168,14 @@ def test_measurement_path_imports_no_pandas_or_matplotlib():
 
 
 def test_no_source_imports_jax():
+    """Neither the package nor its root scripts import jax, the JAX
+    package or ``bench.py``."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|hpc_suffix_array_tpu)(\.|\s|$)", re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+        r"^\s*(import|from)\s+(jax|hpc_suffix_array_tpu|bench)(\.|\s|$)",
+        re.M)
+    sources = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "bench_cuda.py"]
+    assert PKG / "bench" / "headline.py" in sources
+    offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
-    offenders += ["chip_smoke.py"] if pattern.search(
-        (ROOT / "chip_smoke.py").read_text()) else []
     assert offenders == []

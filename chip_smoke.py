@@ -221,7 +221,7 @@ from hpc_suffix_array_tpu_torch.datasets import (
     generate_standard_datasets, generate_words_text,
     generate_words_text_batched)
 from hpc_suffix_array_tpu_torch.kernels import (
-    _build, launch_counts, reset_launch_counts)
+    _build, launch_counts, pass_counts, reset_launch_counts)
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
@@ -233,7 +233,7 @@ from hpc_suffix_array_tpu_torch.parallel import (
     build_lcp_array_sharded, build_sa_lcp_sharded, build_suffix_array_sharded,
     is_valid_suffix_array_sharded, make_mesh)
 from hpc_suffix_array_tpu_torch.utils.profiling import (
-    device_busy, device_trace, read_trace)
+    device_busy, device_trace, process_spans, read_trace)
 from hpc_suffix_array_tpu_torch.viz import generate_statistics_report
 
 T0 = time.perf_counter()
@@ -565,10 +565,10 @@ def time_passes(n_cols: int) -> dict:
     one_pass(fresh_lookback())
     work = [c.clone() for c in cols]
     staging = [torch.empty_like(c) for c in cols]
-    block_digit_sort.launches = place_runs.launches = 0
+    before = launch_counts()
     radix_pass(work, 0, 8, 8, staging)
-    k23_launches = {"block_digit_sort": block_digit_sort.launches,
-                    "place_runs": place_runs.launches}
+    k23_launches = {k: launch_counts()[k] - before[k]
+                    for k in ("block_digit_sort", "place_runs")}
     exact(work, out, f"K2 + glue + K3 pass vs onesweep pass, {n_cols} cols")
     return {"ms": median_ms(one_pass, setup=fresh_lookback),
             "k23_ms": median_ms(
@@ -581,11 +581,11 @@ def time_passes(n_cols: int) -> dict:
 
 def sort_and_count(words, payload, live):
     """radix_sort_words, and the passes it ran and skipped."""
-    run0 = radix_sort_words.passes_run
-    skip0 = radix_sort_words.passes_skipped
+    before = pass_counts()
     got = radix_sort_words(words, payload, live)
-    return got, (radix_sort_words.passes_run - run0,
-                 radix_sort_words.passes_skipped - skip0)
+    after = pass_counts()
+    return got, (after["passes_run"] - before["passes_run"],
+                 after["passes_skipped"] - before["passes_skipped"])
 
 
 def compare_sort(text: np.ndarray) -> dict:
@@ -639,9 +639,9 @@ def compare_keys_only_sort(text: np.ndarray, n: int, nw: int) -> dict:
     def fresh():
         return [k.clone() for k in keys]
 
-    before = digit_histograms.launches
+    before = launch_counts()["digit_histograms"]
     (got, _), passes = sort_and_count(fresh(), None, live)
-    hist_launches = digit_histograms.launches - before
+    hist_launches = launch_counts()["digit_histograms"] - before
     err = exact(got, radix_sort_words_reference(fresh(), None, live)[0],
                 f"keys-only radix_sort_words, {nw + 1} keys, n={n}")
     del got
@@ -730,19 +730,6 @@ MAIN_PATH_KERNELS = ("pack_words", "digit_histograms", "onesweep_pass")
 SPLIT_PASS_KERNELS = ("block_digit_sort", "place_runs")
 
 
-def reset_launches() -> None:
-    reset_launch_counts()
-    radix_sort_words.passes_run = radix_sort_words.passes_skipped = 0
-
-
-launches = launch_counts
-
-
-def passes() -> dict:
-    return {"passes_run": radix_sort_words.passes_run,
-            "passes_skipped": radix_sort_words.passes_skipped}
-
-
 def check_launches(counts: dict, name: str) -> None:
     """The main-path kernels ran, K2 and K3 did not."""
     missing = [k for k in MAIN_PATH_KERNELS if counts[k] < 1]
@@ -768,10 +755,10 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    reset_launches()
+    reset_launch_counts()
     res = cli_run(text, name, "cuda", validate=True, dialect="sequential",
                   out=buf, arrays=arrays)
-    counts = launches()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     report = buf.getvalue()
     if "Valid suffix array: YES" not in report:
@@ -784,7 +771,7 @@ def run_cli(text: np.ndarray, name: str, arrays: dict | None = None,
             k1, 0):
         raise AssertionError(f"{name}: K1 launched {counts['pack_words']} "
                              f"+ {counts['pack_ranks']} times, not {k1}")
-    counts.update(passes())
+    counts.update(pass_counts())
     return res, counts, peak
 
 
@@ -826,7 +813,7 @@ def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
     device route, held byte for byte against the CLI's SA and LCP."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     text_dev = as_byte_tensor(text, "cuda")
@@ -841,7 +828,7 @@ def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated()
-    if pack_ranks.launches < 1:
+    if launch_counts()["pack_ranks"] < 1:
         raise AssertionError("doubling route launched no pack kernel")
     if not (torch.equal(sa, arrays["sa"]) and
             torch.equal(lcp, arrays["lcp"])):
@@ -851,7 +838,7 @@ def against_doubling(text: np.ndarray, arrays: dict, tag: str, name: str,
           f"direct route's, byte for byte; rounds={info['rounds']} "
           f"plcp_rounds={plcp_rounds}; SA {t1 - t0:.3f} s, LCP+LRS "
           f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak "
-          f"{peak / 2**30:.2f} GiB; pack launches {pack_ranks.launches} "
+          f"{peak / 2**30:.2f} GiB; pack launches {launch_counts()['pack_ranks']} "
           f"({card})")
 
 
@@ -862,11 +849,11 @@ def msd_at_2e24(oracles: dict, card: str) -> None:
         text = gen(CHECK_SIZES[-1], SEED)
         want_sa, want_lcp = oracles[name]
         info: dict = {}
-        reset_launches()
+        reset_launch_counts()
         sa, lcp = build_suffix_array_big(
             text, device="cuda", info=info, want_lcp=True,
             chunk_elems=1 << 22, target_bucket=1 << 21)
-        counts = launches()
+        counts = launch_counts()
         if not (np.array_equal(sa.cpu().numpy(), want_sa)
                 and np.array_equal(lcp.cpu().numpy(), want_lcp)):
             raise AssertionError(f"MSD 2^24 {name}: SA or LCP differs "
@@ -896,7 +883,7 @@ def msd_against_direct(text: np.ndarray, card: str) -> None:
         else:
             os.environ["SA_DIRECT_CROSS"] = cross
         info: dict = {}
-        reset_launches()
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_now = build_sa_lcp(text, device="cuda", info=info, text_dev=t)
@@ -907,7 +894,7 @@ def msd_against_direct(text: np.ndarray, card: str) -> None:
             raise AssertionError(f"2^28 alnum took {info['path']}, not "
                                  f"{want}")
         if want == "msd":
-            counts = launches()
+            counts = launch_counts()
             check_launches(counts, "MSD 2^28 alnum")
         if want in out:
             ms[want].append(dt)       # the first run of each is a warm-up
@@ -944,11 +931,11 @@ def harness_on_card(card: str) -> dict:
     phase(f"[10] micro benchmark, 6 rows on cuda: total s "
           f"{[round(r.total_time, 5) for r in results]} ({card})")
 
-    reset_launches()
+    reset_launch_counts()
     rows = benchmark_corpora(
         list(TWIN_ROWS), results_dir=OUT_DIR, device="cuda", verbose=False,
         seq_csv_name="sequential_results_twin.csv", twin=True)
-    counts = launches()
+    counts = launch_counts()
     check_launches(counts, "twin sweep")
     for row, (name, path) in zip(rows, TWIN_ROWS.items()):
         want = {"file": name, "success": True, "platform": "cuda",
@@ -1061,7 +1048,7 @@ def cli_trace(path) -> None:
 
 
 def sharded_counts() -> dict:
-    return {**launches(), **passes()}
+    return {**launch_counts(), **pass_counts()}
 
 
 @contextlib.contextmanager
@@ -1117,7 +1104,7 @@ def sharded_corpus(name: str, text: np.ndarray, want_sa: np.ndarray,
     text_dev = as_byte_tensor(text, "cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     info: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1178,7 +1165,7 @@ def sharded_cli(text: np.ndarray, ref: dict, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     arrays: dict = {}
-    reset_launches()
+    reset_launch_counts()
     res = cli_run(text, "random_alnum_2^28", "cuda", validate=True,
                   dialect="both", out=buf, arrays=arrays, backend="sharded",
                   mesh=mesh)
@@ -1224,7 +1211,7 @@ def sharded_chain(text: np.ndarray, ref: dict, card: str) -> None:
     text_dev = as_byte_tensor(text, "cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     info: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1289,7 +1276,7 @@ def mp_worker(argv: list[str]) -> int:
     out = pathlib.Path(argv[0])
     args = cli_parse_args(argv[1:])
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     arrays: dict = {}
     rc = run_distributed(args, arrays)
     counts = sharded_counts()
@@ -1491,7 +1478,7 @@ def mp_weak(card: str) -> None:
     out = OUT_DIR / "weak"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     rows = weak_scaling.main(WEAK_BYTES, out_dir=out, device="cuda",
                              charts=False, verbose=False)
@@ -1547,10 +1534,10 @@ def lcp_cli(name: str, text: np.ndarray, card: str) -> np.ndarray:
     want_lcp = native.lcp_kasai(text, want_sa)
     arrays: dict = {}
     buf = io.StringIO()
-    reset_launches()
+    reset_launch_counts()
     res = cli_run(text, f"{name}_6MiB", "cuda", validate=True,
                   dialect="sequential", out=buf, arrays=arrays)
-    counts = launches()
+    counts = launch_counts()
     if "Valid suffix array: YES" not in buf.getvalue():
         raise AssertionError(f"[14a] {name} not validated")
     if res["path"] != "direct":
@@ -1577,13 +1564,13 @@ def lcp_cli(name: str, text: np.ndarray, card: str) -> np.ndarray:
         info: dict = {}
         with env(SA_LCP_FETCH=fetch):
             torch.cuda.synchronize()
-            reset_launches()
+            reset_launch_counts()
             t0 = time.perf_counter()
             lcp = build_lcp_array(text, arrays["sa"], device="cuda",
                                   info=info, text_dev=t)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            counts = launches()
+            counts = launch_counts()
         if not np.array_equal(lcp.cpu().numpy(), want_lcp):
             raise AssertionError(f"[14a] {name} {fetch}: LCP != Kasai")
         want_path = fetch if lcp_path != "plcp" else "plcp"
@@ -1643,10 +1630,10 @@ def lcp_full(text: np.ndarray, ref: dict, card: str) -> dict:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches()
+        reset_launch_counts()
         state = prepare()
         got = build(text, sa, state)
-        counts = launches()
+        counts = launch_counts()
         if not torch.equal(got, want):
             raise AssertionError(f"[14b] {route}: LCP differs from phase "
                                  "5's")
@@ -1837,7 +1824,8 @@ def main() -> int:
     native.build()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    nvcc = (f"nvcc {_build.build_seconds:.2f} s" if _build.build_seconds
+    compile_ms = process_spans().get("kernels: compile", {}).get("ms")
+    nvcc = (f"nvcc {compile_ms / 1e3:.2f} s" if compile_ms
             else "kernel library already built")
     phase(f"[2] build: {nvcc}, total {time.perf_counter() - t0:.2f} s; "
           f"ptxas: {' | '.join(ptxas) or 'n/a'}")

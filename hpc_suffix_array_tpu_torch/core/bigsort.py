@@ -80,7 +80,6 @@ from __future__ import annotations
 import functools
 import math
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -90,7 +89,9 @@ from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.radix import (
-    MAX_RADIX, LookBack, onesweep_pass, radix_sort_words)
+    MAX_RADIX, LookBack, onesweep_pass, radix_sort_words, sort_bytes)
+from hpc_suffix_array_tpu_torch.utils.profiling import (
+    count, record, resolve, span)
 
 RESIDUE_SLOTS = 1 << 15          # extracted tie members (the JAX cap)
 RESIDUE_WIN = 64     # bytes compared vectorized before the exact fallback
@@ -130,10 +131,9 @@ def packing_mode(remap: np.ndarray) -> tuple[int, int, bool]:
     return packing_from_sigma(int(remap.max()))
 
 
-# The host-only planning steps carry a profiler span: numpy work shows in
-# no trace by itself, and these are the device's longest idle gaps
-# (PERF.md). Outside a profiler a span costs about a microsecond.
-@torch.profiler.record_function("host: estimate_repeat_len")
+# The host-only planning steps carry a span: numpy work shows in no trace
+# by itself, and these are the device's longest idle gaps (PERF.md).
+@span("host: estimate_repeat_len")
 def estimate_repeat_len(arr: np.ndarray, sample: int = 1 << 16,
                         probe_depth: int = 4096, seed: int = 0x11
                         ) -> int:
@@ -529,6 +529,7 @@ def _resolve_residue_host(arr, slots: np.ndarray,
     return slots, out, lslots, lvals.astype(np.int32)
 
 
+@span("host: residue")
 def _apply_residue(sa, lcp, arr, patches, n: int, want_lcp: bool):
     """Resolve host residue groups and patch them into sa (and lcp).
 
@@ -592,12 +593,13 @@ def prepare_direct(text, *, device, text_dev=None, n_words: int | None = None,
     sigma = int(remap.max())
     nw = n_words
     if nw is None:
-        nw = 2
-        if not residue_feasible(arr, n, RESIDUE_SLOTS / 4, est_repeat,
-                                sigma=sigma):
-            if residue_feasible(arr, n, RESIDUE_SLOTS / 4, est_repeat,
-                                words=3, sigma=sigma):
-                nw = 3
+        with span("host: route_plan"):
+            nw = 2
+            if not residue_feasible(arr, n, RESIDUE_SLOTS / 4, est_repeat,
+                                    sigma=sigma):
+                if residue_feasible(arr, n, RESIDUE_SLOTS / 4, est_repeat,
+                                    words=3, sigma=sigma):
+                    nw = 3
     return {"n": n, "bits": bits, "spw": spw, "nw": nw, "minpad": minpad,
             "remap": remap, "text_dev": t, "host_text": arr,
             "meta": {"est_repeat": est_repeat}}
@@ -635,54 +637,57 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
     if chain_mode is None:
         chain_mode = chain_plausible(meta.get("est_repeat", 0), n)
 
-    words, s_idx = _sorted_keys(state, chain_mode)
-    tie, stats, lcp = post_sort(words, s_idx, n, spw, bits, chain_mode,
-                                want_lcp)
+    with span("direct: sort"):
+        words, s_idx = _sorted_keys(state, chain_mode)
+    with span("direct: post_sort", state["text_dev"].device):
+        tie, stats, lcp = post_sort(words, s_idx, n, spw, bits, chain_mode,
+                                    want_lcp)
     del words
-    ties, d, dok = stats.tolist()
-
-    def rerun(kind: str, force: bool):
-        meta.setdefault("rerun", []).append(kind)
-        return execute_direct(state, force_chain_mode=force,
-                              want_lcp=want_lcp)
-
-    if chain_mode:
-        if ties:
-            if not dok:
-                if force_chain_mode is None:
-                    del s_idx, tie, lcp
-                    return rerun("chain_to_ascending", False)
-                raise NotImplementedError(
-                    "residual ties are not uniform arithmetic chains")
-            if d:
+    with span("direct: residue_extract"):
+        ties, d, dok = stats.tolist()
+        resolve()
+        redo = None
+        if chain_mode:
+            if ties and not dok:
+                if force_chain_mode is not None:
+                    raise NotImplementedError(
+                        "residual ties are not uniform arithmetic chains")
+                redo = "chain_to_ascending", False
+            elif ties and d:
                 mm = _period_mismatches(state["text_dev"], d, n)
-                if mm:
-                    if force_chain_mode is None:
-                        del s_idx, tie, lcp
-                        return rerun("chain_to_ascending", False)
+                if mm and force_chain_mode is not None:
                     raise NotImplementedError(
                         f"chain delta {d} is not a global period "
                         f"({mm} mismatches)")
-                meta["periods"] = [d]
-    elif (ties > n // 4
-          and chain_plausible(meta.get("est_repeat", 0), n)
-          and "chain_to_ascending" not in meta.get("rerun", [])):
-        del s_idx, tie, lcp
-        return rerun("ascending_to_chain", True)
+                if mm:
+                    redo = "chain_to_ascending", False
+                else:
+                    meta["periods"] = [d]
+        elif (ties > n // 4
+              and chain_plausible(meta.get("est_repeat", 0), n)
+              and "chain_to_ascending" not in meta.get("rerun", [])):
+            redo = "ascending_to_chain", True
 
-    patches = []
-    refine = False
-    # The JAX package's gate: the direct build is one whole-text bucket,
-    # so the member cap applies to the flag count (members <= 2*flags +
-    # groups); past it, or past the extraction cap, refine on the device.
-    host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
-    if ties and not chain_mode:
-        refine = ties * 2 > RESIDUE_SLOTS or ties > host_cap
-        if not refine:
-            slots, idxs = _extract_ties(tie, s_idx)
-            refine = slots.shape[0] > RESIDUE_SLOTS
+        patches = []
+        refine = False
+        # The JAX package's gate: the direct build is one whole-text
+        # bucket, so the member cap applies to the flag count (members <=
+        # 2*flags + groups); past it, or past the extraction cap, refine
+        # on the device.
+        host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
+        if redo is None and ties and not chain_mode:
+            refine = ties * 2 > RESIDUE_SLOTS or ties > host_cap
             if not refine:
-                patches.append((slots.cpu().numpy(), idxs.cpu().numpy()))
+                slots, idxs = _extract_ties(tie, s_idx)
+                refine = slots.shape[0] > RESIDUE_SLOTS
+                if not refine:
+                    patches.append((slots.cpu().numpy(),
+                                    idxs.cpu().numpy()))
+    if redo is not None:
+        del s_idx, tie, lcp
+        meta.setdefault("rerun", []).append(redo[0])
+        return execute_direct(state, force_chain_mode=redo[1],
+                              want_lcp=want_lcp)
     sa = s_idx
     if refine:
         from hpc_suffix_array_tpu_torch.core.refine import refine_ties
@@ -798,7 +803,7 @@ def _pack_sampled(text: torch.Tensor, remap, pos, spw: int, bits: int,
     return out.cpu().numpy()
 
 
-@torch.profiler.record_function("host: sample_edges")
+@span("host: sample_edges")
 def sample_edges(arr: np.ndarray, remap, spw: int, bits: int,
                  target_bucket: int, sample: int = 1 << 21,
                  seed: int = 0x5A, k0_only: bool | None = None,
@@ -1018,7 +1023,7 @@ def _scatter(state: dict, edges: torch.Tensor, counts: np.ndarray,
              dest: np.ndarray) -> list[torch.Tensor]:
     """Slabs (bid, k0, k1, idx), int32[n] each: one onesweep pass per
     chunk by the bucket id, chunk c's bucket-b run landing at
-    ``dest[c, b]``."""
+    ``dest[c, b]``; each pass's columns count once in "sort_bytes"."""
     plan, dev = state["plan"], state["text_dev"].device
     n, nb = plan.n, plan.n_buckets
     rbits = max(1, (nb - 1).bit_length())
@@ -1036,61 +1041,49 @@ def _scatter(state: dict, edges: torch.Tensor, counts: np.ndarray,
                            device=dev)
         onesweep_pass([bid, *keys, idx], 0, 0, rbits, starts[c], lookback,
                       out=slabs, digit_counts=counts[c])
+        count("sort_bytes", sort_bytes(bid.shape[0], 4))
     return slabs
-
-
-class _DeviceSpans:
-    """Summed device time of named spans between CUDA events (none on
-    other devices); read once the work has finished."""
-
-    def __init__(self, dev: torch.device):
-        self.on = dev.type == "cuda"
-        self.marks: list[tuple[str, torch.cuda.Event]] = []
-        self.mark("start")
-
-    def mark(self, name: str) -> None:
-        if self.on:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-
-    def totals_ms(self) -> dict:
-        out: dict = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return {k: round(v, 3) for k, v in out.items()}
 
 
 def _bucket_pass(state: dict, slabs, base: np.ndarray, fills: np.ndarray,
                  live: list[int], chain_mode: bool, want_lcp: bool):
-    """Sort every live bucket in place and finish it with ``post_sort``.
+    """Sort every live bucket in place and finish it with ``post_sort``,
+    in the device spans "msd: bucket_sort" and "msd: post_sort".
 
-    Returns (tie bool[n], stats int64[L, 3] per live bucket, device ms
-    of the sorts and post-sort passes). The LCP of bucket b goes into
-    the bucket-id slab at b's region."""
+    Returns (tie bool[n], stats int64[L, 3] per live bucket). The LCP of
+    bucket b goes into the bucket-id slab at b's region."""
     plan = state["plan"]
     bid_s, k0_s, k1_s, idx_s = slabs
-    tie = torch.zeros(plan.n, dtype=torch.bool, device=idx_s.device)
-    spans = _DeviceSpans(idx_s.device)
+    dev = idx_s.device
+    tie = torch.zeros(plan.n, dtype=torch.bool, device=dev)
     stats, prev = [], None
     for b in live:
         a, z = int(base[b]), int(base[b] + fills[b])
         k0, k1, idx = k0_s[a:z], k1_s[a:z], idx_s[a:z]
-        if chain_mode:                  # stable sort of reversed input
-            for col in (k0, k1, idx):
-                col.copy_(col.flip(0))
-        radix_sort_words([k0, k1], idx, plan.bits * plan.spw)
-        spans.mark("bucket_sort")
-        t_b, s_b, lcp_b = post_sort([k0, k1], idx, plan.n, plan.spw,
-                                    plan.bits, chain_mode, want_lcp, prev)
-        tie[a:z] = t_b
-        if want_lcp:
-            bid_s[a:z] = lcp_b
-        stats.append(s_b)
-        prev = (k0[-1:], k1[-1:])
-        spans.mark("post_sort")
+        with span("msd: bucket_sort", dev):
+            if chain_mode:              # stable sort of reversed input
+                for col in (k0, k1, idx):
+                    col.copy_(col.flip(0))
+            radix_sort_words([k0, k1], idx, plan.bits * plan.spw)
+        with span("msd: post_sort", dev):
+            t_b, s_b, lcp_b = post_sort([k0, k1], idx, plan.n, plan.spw,
+                                        plan.bits, chain_mode, want_lcp,
+                                        prev)
+            tie[a:z] = t_b
+            if want_lcp:
+                bid_s[a:z] = lcp_b
+            stats.append(s_b)
+            prev = (k0[-1:], k1[-1:])
     stats = torch.stack(stats).cpu().numpy()        # the pass's host read
-    return tie, stats, spans.totals_ms()
+    resolve()
+    return tie, stats
+
+
+# ``phase_host_s``' keys and the spans they read.
+MSD_PHASES = {"count": "msd: count", "scatter": "msd: scatter",
+              "bucket_sorts": "msd: buckets",
+              "residue_extract": "msd: residue_extract",
+              "finish": "msd: finish"}
 
 
 def execute_big(state: dict, *, max_bucket_elems: int | None = None,
@@ -1113,132 +1106,146 @@ def execute_big(state: dict, *, max_bucket_elems: int | None = None,
 
     ``meta`` (``state["plan"].meta``) receives ``n_buckets_run``,
     ``chain_mode``, ``periods``, ``n_patched``, ``phase_host_s`` (host
-    clock between synced phase ends: count, scatter, bucket_sorts,
-    residue_extract, finish) and, on CUDA, ``phase_device_ms`` (the
-    bucket sorts and post-sort passes, summed)."""
+    seconds of the phases, each ending synced: count, scatter,
+    bucket_sorts, residue_extract, finish; the spans of ``MSD_PHASES``)
+    and, on CUDA, ``phase_device_ms`` (the bucket sorts and post-sort
+    passes, summed over their device spans)."""
+    meta = state["plan"].meta
+    with record("msd", own=True) as rec:
+        mark = rec.mark()
+        out, redo = _execute_big(state, max_bucket_elems, force_chain_mode,
+                                 want_lcp)
+        totals = rec.totals(mark)
+    if redo is not None:
+        meta.setdefault("rerun", []).append(redo[0])
+        return execute_big(state, max_bucket_elems=max_bucket_elems,
+                           force_chain_mode=redo[1], want_lcp=want_lcp)
+    meta["phase_host_s"] = {
+        k: round(totals.get(name, {}).get("ms", 0.0) / 1e3, 4)
+        for k, name in MSD_PHASES.items()}
+    dev_ms = {k: round(totals[f"msd: {k}"]["device_ms"], 3)
+              for k in ("bucket_sort", "post_sort")
+              if "device_ms" in totals.get(f"msd: {k}", {})}
+    if dev_ms:
+        meta["phase_device_ms"] = dev_ms
+    return out
+
+
+def _execute_big(state: dict, max_bucket_elems: int | None,
+                 force_chain_mode: bool | None, want_lcp: bool):
+    """``execute_big``'s passes: (output, None), or (None, (rerun kind,
+    forced chain mode)) where the build must run again."""
     plan: BigPlan = state["plan"]
     meta = plan.meta
     n, nb = plan.n, plan.n_buckets
     t = state["text_dev"]
     dev = t.device
-    stamps = [("start", time.perf_counter())]
     chain_mode = force_chain_mode
     if chain_mode is None:
         chain_mode = chain_plausible(meta.get("est_repeat", 0), n)
 
-    edges = _plan_edges(plan, dev)
-    counts = _count_pass(state, edges)
-    plan.counts = counts
-    fills = counts.sum(axis=0)
-    if int(fills.sum()) != n:
-        raise RuntimeError(f"bucket counts sum to {int(fills.sum())}, "
-                           f"not n={n}")
-    stamps.append(("count", time.perf_counter()))
-    pass_cap = max_bucket_elems or MAX_PASS_ELEMS
-    if int(fills.max()) > pass_cap:
-        raise NotImplementedError(
-            f"bucket skew: one bucket holds {int(fills.max())} of n={n} "
-            f"elements (> {pass_cap}); the text's prefix distribution is "
-            "too degenerate for the MSD path")
-    # Exact counts, so no gaps: bucket b's region is its final SA range,
-    # and chunk c's run of b follows the runs of the chunks before it.
-    base = np.concatenate([[0], np.cumsum(fills)[:-1]]).astype(np.int64)
-    dest = base[None, :] + np.concatenate(
-        [np.zeros((1, nb), np.int64), np.cumsum(counts, axis=0)[:-1]])
-    slabs = _scatter(state, edges, counts, dest)
-    _sync(dev)
-    stamps.append(("scatter", time.perf_counter()))
+    with span("msd: count"):
+        edges = _plan_edges(plan, dev)
+        counts = _count_pass(state, edges)
+        plan.counts = counts
+        fills = counts.sum(axis=0)
+        if int(fills.sum()) != n:
+            raise RuntimeError(f"bucket counts sum to {int(fills.sum())}, "
+                               f"not n={n}")
+    with span("msd: scatter"):
+        pass_cap = max_bucket_elems or MAX_PASS_ELEMS
+        if int(fills.max()) > pass_cap:
+            raise NotImplementedError(
+                f"bucket skew: one bucket holds {int(fills.max())} of n={n} "
+                f"elements (> {pass_cap}); the text's prefix distribution "
+                "is too degenerate for the MSD path")
+        # Exact counts, so no gaps: bucket b's region is its final SA
+        # range, and chunk c's run of b follows the runs of the chunks
+        # before it.
+        base = np.concatenate([[0], np.cumsum(fills)[:-1]]).astype(np.int64)
+        dest = base[None, :] + np.concatenate(
+            [np.zeros((1, nb), np.int64), np.cumsum(counts, axis=0)[:-1]])
+        slabs = _scatter(state, edges, counts, dest)
+        _sync(dev)
 
-    live = [b for b in range(nb) if fills[b]]
-    tie, stats, dev_ms = _bucket_pass(state, slabs, base, fills, live,
-                                      chain_mode, want_lcp)
-    sa = slabs[3]
-    lcp = slabs[0] if want_lcp else None
-    del slabs                           # the key slabs are dead
-    stamps.append(("bucket_sorts", time.perf_counter()))
+    with span("msd: buckets"):
+        live = [b for b in range(nb) if fills[b]]
+        tie, stats = _bucket_pass(state, slabs, base, fills, live,
+                                  chain_mode, want_lcp)
+        sa = slabs[3]
+        lcp = slabs[0] if want_lcp else None
+        del slabs                       # the key slabs are dead
     tie_counts = stats[:, 0]
 
-    def rerun(kind: str, force: bool):
-        meta.setdefault("rerun", []).append(kind)
-        return execute_big(state, max_bucket_elems=max_bucket_elems,
-                           force_chain_mode=force, want_lcp=want_lcp)
-
-    verified: set[int] = set()
-    if chain_mode:
-        for b, (ties, d, dok) in zip(live, stats.tolist()):
-            if not ties:
-                continue
-            if not dok:
-                if force_chain_mode is None:
-                    sa = lcp = tie = None       # free before re-running
-                    return rerun("chain_to_ascending", False)
-                raise NotImplementedError(
-                    f"bucket {b}: residual ties are not uniform arithmetic "
-                    "chains")
-            if d and d not in verified:
-                mm = _period_mismatches(t, d, n)
-                if mm:
+    with span("msd: residue_extract"):
+        verified: set[int] = set()
+        if chain_mode:
+            for b, (ties, d, dok) in zip(live, stats.tolist()):
+                if not ties:
+                    continue
+                if not dok:
                     if force_chain_mode is None:
-                        sa = lcp = tie = None
-                        return rerun("chain_to_ascending", False)
+                        return None, ("chain_to_ascending", False)
                     raise NotImplementedError(
-                        f"bucket {b}: chain delta {d} is not a global "
-                        f"period ({mm} mismatches)")
-                verified.add(d)
-    elif (int(tie_counts.sum()) > n // 4
-          and chain_plausible(meta.get("est_repeat", 0), n)
-          and "chain_to_ascending" not in meta.get("rerun", [])):
-        sa = lcp = tie = None
-        return rerun("ascending_to_chain", True)
+                        f"bucket {b}: residual ties are not uniform "
+                        "arithmetic chains")
+                if d and d not in verified:
+                    mm = _period_mismatches(t, d, n)
+                    if mm:
+                        if force_chain_mode is None:
+                            return None, ("chain_to_ascending", False)
+                        raise NotImplementedError(
+                            f"bucket {b}: chain delta {d} is not a global "
+                            f"period ({mm} mismatches)")
+                    verified.add(d)
+        elif (int(tie_counts.sum()) > n // 4
+              and chain_plausible(meta.get("est_repeat", 0), n)
+              and "chain_to_ascending" not in meta.get("rerun", [])):
+            return None, ("ascending_to_chain", True)
 
-    # The host residue's bound is per bucket (RESIDUE_SLOTS members each;
-    # members <= 2 * flags + groups, so the flags predict an overflow
-    # before any extraction); the global cap bounds the host lexsort.
-    patches = []
-    refine = False
-    host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
-    if not chain_mode and tie_counts.sum():
-        refine = (int(tie_counts.max()) * 2 > RESIDUE_SLOTS
-                  or int(tie_counts.sum()) > host_cap)
-        if not refine:
-            slots, idxs = _extract_ties(tie, sa)
-            bounds = torch.as_tensor(
-                np.r_[base[live], n].astype(np.int64)).to(dev)
-            cuts = torch.searchsorted(slots, bounds).tolist()
-            refine = max(np.diff(cuts)) > RESIDUE_SLOTS
+        # The host residue's bound is per bucket (RESIDUE_SLOTS members
+        # each; members <= 2 * flags + groups, so the flags predict an
+        # overflow before any extraction); the global cap bounds the host
+        # lexsort.
+        patches = []
+        refine = False
+        host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
+        if not chain_mode and tie_counts.sum():
+            refine = (int(tie_counts.max()) * 2 > RESIDUE_SLOTS
+                      or int(tie_counts.sum()) > host_cap)
             if not refine:
-                slots, idxs = slots.cpu().numpy(), idxs.cpu().numpy()
-                patches = [(slots[a:z], idxs[a:z])
-                           for a, z in zip(cuts, cuts[1:]) if z > a]
-    stamps.append(("residue_extract", time.perf_counter()))
+                slots, idxs = _extract_ties(tie, sa)
+                bounds = torch.as_tensor(
+                    np.r_[base[live], n].astype(np.int64)).to(dev)
+                cuts = torch.searchsorted(slots, bounds).tolist()
+                refine = max(np.diff(cuts)) > RESIDUE_SLOTS
+                if not refine:
+                    slots, idxs = slots.cpu().numpy(), idxs.cpu().numpy()
+                    patches = [(slots[a:z], idxs[a:z])
+                               for a, z in zip(cuts, cuts[1:]) if z > a]
 
-    n_patched = 0
-    if refine:
-        from hpc_suffix_array_tpu_torch.core.refine import refine_ties
+    with span("msd: finish"):
+        n_patched = 0
+        if refine:
+            from hpc_suffix_array_tpu_torch.core.refine import refine_ties
 
-        sa, lcp = refine_ties(
-            sa, tie, lcp, t, remap=plan.remap, spw_main=plan.spw, nw=2,
-            minpad=plan.minpad, host_text=state["host_text"],
-            want_lcp=want_lcp, meta=meta)
-        n_patched = meta["refine_host_members"]
-    del tie
-    if patches:
-        sa, lcp, n_patched = _apply_residue(
-            sa, lcp, state["host_text"], patches, n, want_lcp)
-    if want_lcp and plan.minpad:
-        # After the residue and refinement patches (see _clamp_lcp).
-        lcp = _clamp_lcp(sa, lcp, n)
-    _sync(dev)
-    stamps.append(("finish", time.perf_counter()))
+            sa, lcp = refine_ties(
+                sa, tie, lcp, t, remap=plan.remap, spw_main=plan.spw, nw=2,
+                minpad=plan.minpad, host_text=state["host_text"],
+                want_lcp=want_lcp, meta=meta)
+            n_patched = meta["refine_host_members"]
+        del tie
+        if patches:
+            sa, lcp, n_patched = _apply_residue(
+                sa, lcp, state["host_text"], patches, n, want_lcp)
+        if want_lcp and plan.minpad:
+            # After the residue and refinement patches (see _clamp_lcp).
+            lcp = _clamp_lcp(sa, lcp, n)
+        _sync(dev)
 
     meta.update(n_buckets_run=len(live), chain_mode=chain_mode,
                 periods=sorted(verified), n_patched=n_patched)
-    meta["phase_host_s"] = {
-        name: round(t1 - t0, 4)
-        for (_, t0), (name, t1) in zip(stamps, stamps[1:])}
-    if dev_ms:
-        meta["phase_device_ms"] = dev_ms
-    return (sa, lcp) if want_lcp else sa
+    return ((sa, lcp) if want_lcp else sa), None
 
 
 def build_suffix_array_big(text, *, device, info: dict | None = None,

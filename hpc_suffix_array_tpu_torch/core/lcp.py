@@ -47,6 +47,7 @@ from hpc_suffix_array_tpu_torch.core.suffix_array import (
     build_suffix_array_doubling, carried_keys_build, device_text,
     doubling_reach, sais_host_fallback)
 from hpc_suffix_array_tpu_torch.device import resolve_device
+from hpc_suffix_array_tpu_torch.utils.profiling import record, span
 
 # Bytes compared per unresolved position per round.
 CMP_WIDTH = 32
@@ -209,7 +210,8 @@ def _sa_lcp_big(text, n: int, *, device, text_dev=None,
 
 def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
               info: dict | None) -> torch.Tensor:
-    plcp, rounds = plcp_kernel(t, sa)
+    with span("plcp"):
+        plcp, rounds = plcp_kernel(t, sa)
     if info is not None:
         info["plcp_rounds"] = rounds
     return lcp_from_plcp(plcp, sa)
@@ -227,7 +229,9 @@ def _kasai_host(host: np.ndarray, sa: torch.Tensor,
     """LCP of ``sa`` by host Kasai (native C, O(n)), on ``dev``."""
     from hpc_suffix_array_tpu_torch import native
 
-    return torch.from_numpy(native.lcp_kasai(host, sa.cpu().numpy())).to(dev)
+    with span("kasai: host"):
+        lcp = native.lcp_kasai(host, sa.cpu().numpy())
+    return torch.from_numpy(lcp).to(dev)
 
 
 def _fetch_lcp(text, t: torch.Tensor, sa: torch.Tensor,
@@ -285,7 +289,13 @@ def build_sa_lcp(text, *, device, info: dict | None = None,
     host SA-IS and Kasai above it. Below it, ``build_suffix_array`` and
     ``build_lcp_array`` run back to back. ``text_dev`` and ``info`` as
     in ``build_suffix_array``, plus ``build_lcp_array``'s ``lcp_*``
-    keys on the decline path."""
+    keys on the decline path (top span "sa_lcp")."""
+    with record("sa_lcp", info):
+        return _build_sa_lcp(text, device, info, text_dev)
+
+
+def _build_sa_lcp(text, device, info: dict | None,
+                  text_dev: torch.Tensor | None):
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]
@@ -329,7 +339,14 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
     "sorted", "window", "plcp" or "kasai_host"); for the sorted-fetch
     and window routes ``lcp_misses`` (pairs past the window) and
     ``lcp_finish`` ("none", "chain" or "host"); ``lcp_declined`` (why
-    they refused); for PLCP, ``plcp_rounds``."""
+    they refused); for PLCP, ``plcp_rounds``; and the build record's keys
+    as in ``build_suffix_array`` (top span "lcp")."""
+    with record("lcp", info):
+        return _build_lcp_array(text, sa, device, info, text_dev)
+
+
+def _build_lcp_array(text, sa, device, info: dict | None,
+                     text_dev: torch.Tensor | None) -> torch.Tensor:
     dev = resolve_device(device)
     t = device_text(text, dev, text_dev)
     n = t.shape[0]

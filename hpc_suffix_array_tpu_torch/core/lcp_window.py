@@ -42,6 +42,7 @@ from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.device import resolve_device
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.utils.profiling import span
 
 HOST_FINISH_CAP = 65536    # irregular window-miss pairs finished on host
 CHUNK = 1 << 20
@@ -210,6 +211,7 @@ def prepare_lcp(text, *, device="cuda",
             "text_dev": pad, "text32": pad.view(torch.int32)}
 
 
+@span("lcp: window")
 def build_lcp_array_window(text, sa, state: dict | None = None, *,
                            device="cuda", text_dev=None,
                            info: dict | None = None) -> torch.Tensor:
@@ -308,6 +310,7 @@ def _mismatch_sorted(state: dict, sa: torch.Tensor) -> torch.Tensor:
     return lcp
 
 
+@span("lcp: sorted_fetch")
 def build_lcp_array_sorted(text, sa, state: dict | None = None, *,
                            device="cuda", text_pad_dev=None,
                            info: dict | None = None) -> torch.Tensor:

@@ -42,7 +42,6 @@ member count of rows, so there are no pad segments to wrap int32.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from hpc_suffix_array_tpu_torch.core.bigsort import (
     _apply_residue, _high_bit, _sync)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+from hpc_suffix_array_tpu_torch.utils.profiling import record, span
 
 
 class RefineOverflow(NotImplementedError):
@@ -216,11 +216,31 @@ def refine_ties(sa: torch.Tensor, tie: torch.Tensor,
       host_text: np.uint8[n] for the exact host closer.
       meta: optional dict that receives ``refine_members``,
             ``refine_pieces``, ``refine_rounds`` (most in one piece),
-            ``refine_host_members`` and ``refine_phase_s``.
+            ``refine_host_members`` and ``refine_phase_s`` (host seconds
+            of the spans of ``REFINE_PHASES``).
 
     Returns (sa, lcp). Raises RefineOverflow when a cap is exceeded.
     """
     meta = meta if meta is not None else {}
+    with record("refine", own=True) as rec:
+        mark = rec.mark()
+        out = _refine(sa, tie, lcp, text, remap, spw_main, nw, minpad,
+                      host_text, want_lcp, meta)
+        totals = rec.totals(mark)
+    if meta["refine_members"]:
+        meta["refine_phase_s"] = {
+            k: round(totals.get(name, {}).get("ms", 0.0) / 1e3, 3)
+            for k, name in REFINE_PHASES.items()}
+    return out
+
+
+# ``refine_phase_s``' keys and the spans they read.
+REFINE_PHASES = {"extract": "refine: extract", "pk": "refine: pair_table",
+                 "rounds": "refine: rounds", "host_fetch": "refine: fetch"}
+
+
+def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
+            minpad: bool, host_text, want_lcp: bool, meta: dict):
     knobs = refine_knobs()
     n, dev = sa.shape[0], sa.device
     bits, spw = refine_packing(int(remap.max()))
@@ -228,78 +248,72 @@ def refine_ties(sa: torch.Tensor, tie: torch.Tensor,
     if not want_lcp:
         lcp = None
 
-    t0 = time.perf_counter()
-    # A flag marks the later element of a tied pair; a group's head
-    # joins through its successor's flag (_extract_ties' rule).
-    member = tie.clone()
-    member[:-1] |= tie[1:]
-    slots = torch.nonzero(member).view(-1)
-    del member
-    meta.update(refine_members=slots.shape[0], refine_pieces=0,
-                refine_rounds=0, refine_host_members=0)
-    if slots.shape[0] == 0:
-        return sa, lcp
-    heads = ~tie[slots]
-    bounds = piece_bounds(heads, knobs["piece"])
-    sizes = np.diff(bounds)
-    if sizes.max() > knobs["group_max"]:
-        raise RefineOverflow(
-            f"a refinement piece holds {int(sizes.max())} tied members "
-            f"(> SA_REFINE_GROUP_MAX={knobs['group_max']}): one tie group "
-            "exceeds the device sort budget")
-    meta["refine_pieces"] = len(sizes)
-    _sync(dev)
-    phases = {"extract": time.perf_counter() - t0}
+    with span("refine: extract"):
+        # A flag marks the later element of a tied pair; a group's head
+        # joins through its successor's flag (_extract_ties' rule).
+        member = tie.clone()
+        member[:-1] |= tie[1:]
+        slots = torch.nonzero(member).view(-1)
+        del member
+        meta.update(refine_members=slots.shape[0], refine_pieces=0,
+                    refine_rounds=0, refine_host_members=0)
+        if slots.shape[0] == 0:
+            return sa, lcp
+        heads = ~tie[slots]
+        bounds = piece_bounds(heads, knobs["piece"])
+        sizes = np.diff(bounds)
+        if sizes.max() > knobs["group_max"]:
+            raise RefineOverflow(
+                f"a refinement piece holds {int(sizes.max())} tied members "
+                f"(> SA_REFINE_GROUP_MAX={knobs['group_max']}): one tie "
+                "group exceeds the device sort budget")
+        meta["refine_pieces"] = len(sizes)
+        _sync(dev)
 
-    t0 = time.perf_counter()
-    pk2 = pair_table(text, remap)
-    _sync(dev)
-    phases.update(pk=time.perf_counter() - t0, rounds=0.0, host_fetch=0.0)
+    with span("refine: pair_table"):
+        pk2 = pair_table(text, remap)
+        _sync(dev)
 
     host_patches = []
     rounds_max = 0
     for a, b in zip(bounds[:-1], bounds[1:]):
-        t0 = time.perf_counter()
-        slot = slots[a:b]
-        idx = sa[slot]
-        seg = segment_ids(heads[a:b])
-        patch = torch.full_like(idx, -1)
-        d, tied, rounds = d0, b - a, 0
-        while (tied and rounds < knobs["rounds"]
-               and tied > knobs["host_piece"]):
-            if tied <= slot.shape[0] // 4 and slot.shape[0] > 1 << 12:
-                # Geometric compaction: commit the resolved rows and
-                # keep deepening only the still-tied segments.
-                _commit(sa, lcp, slot, idx, patch)
-                keep, head = tied_rows(seg)
-                slot, idx = slot[keep], idx[keep]
-                seg = segment_ids(head)
-                patch = torch.full_like(idx, -1)
-            seg, idx, patch, tied = refine_round(seg, idx, patch, pk2, d,
-                                                 spw, bits)
-            d += 2 * spw
-            rounds += 1
-        rounds_max = max(rounds_max, rounds)
-        phases["rounds"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if tied:
-            keep, _ = tied_rows(seg)
-            if keep.shape[0] > 4 * knobs["host_piece"]:
-                raise RefineOverflow(
-                    f"{keep.shape[0]} members still tied after {rounds} "
-                    "refinement rounds (> 4*SA_REFINE_HOST_PIECE)")
-            host_patches.append((slot[keep].cpu().numpy(),
-                                 idx[keep].cpu().numpy()))
-        _commit(sa, lcp, slot, idx, patch)
-        phases["host_fetch"] += time.perf_counter() - t0
+        with span("refine: rounds"):
+            slot = slots[a:b]
+            idx = sa[slot]
+            seg = segment_ids(heads[a:b])
+            patch = torch.full_like(idx, -1)
+            d, tied, rounds = d0, b - a, 0
+            while (tied and rounds < knobs["rounds"]
+                   and tied > knobs["host_piece"]):
+                if tied <= slot.shape[0] // 4 and slot.shape[0] > 1 << 12:
+                    # Geometric compaction: commit the resolved rows and
+                    # keep deepening only the still-tied segments.
+                    _commit(sa, lcp, slot, idx, patch)
+                    keep, head = tied_rows(seg)
+                    slot, idx = slot[keep], idx[keep]
+                    seg = segment_ids(head)
+                    patch = torch.full_like(idx, -1)
+                seg, idx, patch, tied = refine_round(seg, idx, patch, pk2,
+                                                     d, spw, bits)
+                d += 2 * spw
+                rounds += 1
+            rounds_max = max(rounds_max, rounds)
+        with span("refine: fetch"):
+            if tied:
+                keep, _ = tied_rows(seg)
+                if keep.shape[0] > 4 * knobs["host_piece"]:
+                    raise RefineOverflow(
+                        f"{keep.shape[0]} members still tied after {rounds} "
+                        "refinement rounds (> 4*SA_REFINE_HOST_PIECE)")
+                host_patches.append((slot[keep].cpu().numpy(),
+                                     idx[keep].cpu().numpy()))
+            _commit(sa, lcp, slot, idx, patch)
     del pk2, slots, heads
 
-    t0 = time.perf_counter()
-    sa, lcp, n_host = _apply_residue(sa, lcp, host_text, host_patches, n,
-                                     want_lcp)
-    _sync(dev)
-    phases["host_fetch"] += time.perf_counter() - t0
+    with span("refine: fetch"):
+        sa, lcp, n_host = _apply_residue(sa, lcp, host_text, host_patches,
+                                         n, want_lcp)
+        _sync(dev)
     meta["refine_rounds"] = rounds_max
     meta["refine_host_members"] = n_host
-    meta["refine_phase_s"] = {k: round(v, 3) for k, v in phases.items()}
     return sa, lcp

@@ -37,6 +37,7 @@ from hpc_suffix_array_tpu_torch.kernels.pack import pack_ranks
 from hpc_suffix_array_tpu_torch.ops.scan import dense_ranks, route_to_positions
 from hpc_suffix_array_tpu_torch.ops.shift import shifted_ranks
 from hpc_suffix_array_tpu_torch.ops.sort import sort_by_rank_pairs
+from hpc_suffix_array_tpu_torch.utils.profiling import record, span
 
 # Prefix-multiplication factor per round: the reference doubles.
 FACTOR = 2
@@ -163,6 +164,7 @@ def alphabet_remap(arr: np.ndarray) -> tuple[np.ndarray, int, int]:
     return remap_from_present(counts > 0)
 
 
+@span("host: alphabet_remap")
 def alphabet_remap_dev(text: torch.Tensor) -> tuple[np.ndarray, int, int]:
     """``alphabet_remap`` of a uint8 tensor, counted on its device."""
     counts = torch.zeros(256, dtype=torch.int64, device=text.device)
@@ -189,9 +191,10 @@ def build_suffix_array_doubling(text, *, device, info: dict | None = None
     n = t.shape[0]
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=t.device)
-    remap, bits, h0 = alphabet_remap_dev(t)
-    rank0 = pack_ranks_kernel(t, remap, bits, h0, n)
-    sa, _rank, rounds = suffix_array_kernel(rank0, h0)
+    with span("doubling"):
+        remap, bits, h0 = alphabet_remap_dev(t)
+        rank0 = pack_ranks_kernel(t, remap, bits, h0, n)
+        sa, _rank, rounds = suffix_array_kernel(rank0, h0)
     if info is not None:
         info["path"] = "doubling"
         info["rounds"] = rounds
@@ -209,7 +212,8 @@ def sais_host_fallback(text, *, device, info: dict | None = None
     repeated block). ``info`` receives ``path`` = "sais_host"."""
     from hpc_suffix_array_tpu_torch import native
 
-    sa = torch.from_numpy(native.sa_build(as_byte_array(text)))
+    with span("sais: host"):
+        sa = torch.from_numpy(native.sa_build(as_byte_array(text)))
     if info is not None:
         info["path"] = "sais_host"
     return sa.to(resolve_device(device))
@@ -228,7 +232,10 @@ def carried_keys_build(arr: np.ndarray, n: int, t: torch.Tensor,
     kw = dict(device=t.device, info=info, want_lcp=want_lcp, text_dev=t,
               remap=remap, est_repeat=est)
     routes = [("msd", bigsort.build_suffix_array_big)]
-    if bigsort.prefer_direct(arr, n, est_repeat=est, sigma=int(remap.max())):
+    with span("host: route_plan"):
+        direct = bigsort.prefer_direct(arr, n, est_repeat=est,
+                                       sigma=int(remap.max()))
+    if direct:
         routes.insert(0, ("direct", bigsort.build_suffix_array_direct))
     for path, build in routes:
         try:
@@ -259,7 +266,15 @@ def build_suffix_array(text, *, device, info: dict | None = None,
     "doubling" or "sais_host"), the carried-keys build's keys
     (``rerun``, ``chain_mode``, ``n_patched``, ``periods``, ``n_words``
     or ``n_buckets_run``, the ``refine_*`` keys), ``declined`` (why a
-    carried-keys builder fell back) or ``rounds``."""
+    carried-keys builder fell back) or ``rounds``, and the build record's
+    ``spans_ms``, ``span_self_ms`` and ``counters`` (``utils/
+    profiling.py::record``, top span "sa")."""
+    with record("sa", info):
+        return _build_suffix_array(text, device, info, text_dev)
+
+
+def _build_suffix_array(text, device, info: dict | None,
+                        text_dev: torch.Tensor | None) -> torch.Tensor:
     t = device_text(text, device, text_dev)
     n = t.shape[0]
     if n > big_threshold() or n > chain_min():

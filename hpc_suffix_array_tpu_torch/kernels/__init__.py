@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels (``csrc/``), each beside its plain version.
 
 Kernels build with nvcc at first use (``_build.load``), never at import.
-Each wrapper counts its own launches (``fn.launches``);
-``launch_counts`` reads them all and ``reset_launch_counts`` zeroes
-them.
+Each wrapper counts its own launches ("launches: <name>") and the radix
+sort its executed and skipped passes in the recorder's process table
+(``utils/profiling.py``); ``launch_counts`` and ``pass_counts`` read
+them and ``reset_launch_counts`` zeroes them.
 """
 
 from hpc_suffix_array_tpu_torch.kernels.pack import (
@@ -13,22 +14,33 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
     place_runs, place_runs_reference, radix_sort_words,
     radix_sort_words_reference)
+from hpc_suffix_array_tpu_torch.utils.profiling import (
+    process_counters, reset_counters)
 
-COUNTED = (pack_ranks, pack_words, digit_histograms, onesweep_pass,
-           block_digit_sort, place_runs)
+COUNTED = ("pack_ranks", "pack_words", "digit_histograms", "onesweep_pass",
+           "block_digit_sort", "place_runs")
+PASSES = ("passes_run", "passes_skipped")
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel name -> launches since the last ``reset_launch_counts``."""
-    return {fn.__name__: fn.launches for fn in COUNTED}
+    counters = process_counters()
+    return {name: counters.get(f"launches: {name}", 0) for name in COUNTED}
+
+
+def pass_counts() -> dict[str, int]:
+    """``radix_sort_words``' executed and skipped passes on CUDA since
+    the last ``reset_launch_counts``."""
+    counters = process_counters()
+    return {name: counters.get(name, 0) for name in PASSES}
 
 
 def reset_launch_counts() -> None:
-    for fn in COUNTED:
-        fn.launches = 0
+    reset_counters(*(f"launches: {name}" for name in COUNTED), *PASSES)
 
 
-__all__ = ["launch_counts", "reset_launch_counts", "pack_ranks", "pack_ranks_reference", "pack_words",
+__all__ = ["launch_counts", "pass_counts", "reset_launch_counts",
+           "pack_ranks", "pack_ranks_reference", "pack_words",
            "pack_words_reference", "block_digit_sort",
            "block_digit_sort_reference", "digit_histograms",
            "digit_histograms_reference", "onesweep_pass",

@@ -23,7 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-import time
+
+from hpc_suffix_array_tpu_torch.utils import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -32,10 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
-# Seconds the last build in this process took (0.0 when the library
-# was already on disk) and the compiler's report (ptxas register and
-# shared-memory use per kernel).
-build_seconds = 0.0
+# The compiler's report of the last build in this process (ptxas register
+# and shared-memory use per kernel).
 build_log = ""
 
 
@@ -54,10 +53,17 @@ def _nvcc() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_seconds, build_log
+    """Compile (once per source hash) and load the kernel library, in the
+    process span "kernels: load" (the compile, where one runs, in
+    "kernels: compile")."""
     if _lib is not None:
         return _lib
+    with profiling.span("kernels: load", process=True):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib, build_log
     srcs = _sources()
     digest = hashlib.sha256()
     for p in srcs:
@@ -66,8 +72,8 @@ def load() -> ctypes.CDLL:
     so = BUILD_DIR / f"libsa_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        with (profiling.span("kernels: compile", process=True),
+              tempfile.TemporaryDirectory(dir=BUILD_DIR) as td):
             tmp = pathlib.Path(td) / so.name
             nvcc = _nvcc()
             objs, procs = [], []
@@ -94,7 +100,6 @@ def load() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc link failed ({' '.join(cmd)}):\n{build_log}")
             tmp.replace(so)
-        build_seconds = time.perf_counter() - t0
         so.with_suffix(".log").write_text(build_log)
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

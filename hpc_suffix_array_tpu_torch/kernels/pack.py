@@ -21,7 +21,10 @@ then; ``_check_args`` enforces bits*spw <= 30.
 the remap gather and mask around it) for a CUDA tensor, and run
 ``pack_words_reference`` / ``pack_ranks_reference`` for a CPU tensor.
 There is no fallback between the two: a CUDA call launches the kernel
-or raises. Each entry point counts its own launches.
+or raises. Each entry point counts its launches ("launches: <name>", on
+CUDA) and, on either device, the bytes the call must move ("k1_bytes":
+the text bytes its rows' windows cover below ``n_real``, read once,
+and 4 B a word a row written) in the recorder of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels import _build
+from hpc_suffix_array_tpu_torch.utils.profiling import count
 
 
 def _check_args(text, remap, bits: int, h0: int, n_real: int,
@@ -113,6 +117,15 @@ def pack_words_reference(text: torch.Tensor, table: torch.Tensor, bits: int,
     return out
 
 
+def k1_bytes(n_real: int, offset: int, n_out: int, n_words: int,
+             spw: int) -> int:
+    """Bytes a fold of ``n_out`` rows from ``offset`` must move: the text
+    bytes below ``n_real`` that the rows' windows of ``n_words * spw``
+    symbols cover, each read once, and every word written once."""
+    read = max(0, min(n_real, offset + n_out + n_words * spw - 1) - offset)
+    return read + 4 * n_out * n_words
+
+
 def _launch(text, table, bits, spw, n_real, n_words, offset, n_out,
             out) -> list[torch.Tensor]:
     """One K1 launch on the current stream (arguments checked)."""
@@ -147,16 +160,19 @@ def pack_words(text: torch.Tensor, table: torch.Tensor, bits: int, spw: int,
     ``out``: n_words int32[n_out] tensors with one element stride, e.g.
     the columns of a row-major int32[rows, n_words] table. On a CUDA
     tensor this launches the kernel on the current stream and adds one
-    to ``pack_words.launches`` (none for 0 rows); on a CPU tensor it runs
-    ``pack_words_reference``."""
+    to the "launches: pack_words" counter (none for 0 rows); on a CPU
+    tensor it runs ``pack_words_reference``. Either adds ``k1_bytes``
+    to "k1_bytes"."""
     n_out = text.shape[0] if n_out is None else int(n_out)
     _check_args(text, table, bits, spw, n_real, offset, n_words, n_out)
     if text.device.type == "cpu":
-        return pack_words_reference(text, table, bits, spw, n_real, n_words,
-                                    offset, n_out, out)
-    out = _launch(text, table, bits, spw, n_real, n_words, offset, n_out,
-                  out)
-    pack_words.launches += int(n_out > 0)
+        out = pack_words_reference(text, table, bits, spw, n_real, n_words,
+                                   offset, n_out, out)
+    else:
+        out = _launch(text, table, bits, spw, n_real, n_words, offset,
+                      n_out, out)
+        count("launches: pack_words", int(n_out > 0))
+    count("k1_bytes", k1_bytes(n_real, offset, n_out, n_words, spw))
     return out
 
 
@@ -166,16 +182,15 @@ def pack_ranks(text: torch.Tensor, remap: torch.Tensor, bits: int, h0: int,
     ``h0`` codes per position (see module doc).
 
     On a CUDA tensor this launches the kernel on the current stream and
-    adds one to ``pack_ranks.launches``; on a CPU tensor it returns
-    ``pack_ranks_reference``."""
+    adds one to the "launches: pack_ranks" counter; on a CPU tensor it
+    returns ``pack_ranks_reference``. Either adds ``k1_bytes`` to
+    "k1_bytes"."""
     _check_args(text, remap, bits, h0, n_real, offset)
+    n = text.shape[0]
     if text.device.type == "cpu":
-        return pack_ranks_reference(text, remap, bits, h0, n_real, offset)
-    out = _launch(text, remap, bits, h0, n_real, 1, offset, text.shape[0],
-                  None)[0]
-    pack_ranks.launches += int(out.shape[0] > 0)
+        out = pack_ranks_reference(text, remap, bits, h0, n_real, offset)
+    else:
+        out = _launch(text, remap, bits, h0, n_real, 1, offset, n, None)[0]
+        count("launches: pack_ranks", int(n > 0))
+    count("k1_bytes", k1_bytes(n_real, offset, n, 1, h0))
     return out
-
-
-pack_words.launches = 0
-pack_ranks.launches = 0

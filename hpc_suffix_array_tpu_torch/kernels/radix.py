@@ -29,8 +29,9 @@ uint32, so keys order as unsigned integers. ``rbits`` 4 is the TPU
 version's digit (the parity test); the builder uses ``RBITS = 8``.
 
 Each wrapper launches its kernel for CUDA tensors and adds one to its
-``launches``; for CPU tensors it runs its ``*_reference``. There is no
-fallback between the two: a CUDA call launches the kernel or raises.
+"launches: <name>" counter in the recorder of ``utils/profiling.py``;
+for CPU tensors it runs its ``*_reference``. There is no fallback
+between the two: a CUDA call launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import ctypes
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels import _build
+from hpc_suffix_array_tpu_torch.utils.profiling import count
 
 BLOCK = 4096          # elements per K2/K3 block (csrc/radix.cu kBlock)
 TILE = 4096           # elements per onesweep tile (csrc/onesweep.cu kTile)
@@ -169,11 +171,8 @@ def block_digit_sort(cols, key_col: int, shift: int, rbits: int, out=None):
         err = lib.sa_block_digit_sort(*ptrs, len(cols), key_col, n, shift,
                                       rbits, hist.data_ptr(), stream)
     _build.check(err, "sa_block_digit_sort")
-    block_digit_sort.launches += 1
+    count("launches: block_digit_sort")
     return out, hist
-
-
-block_digit_sort.launches = 0
 
 
 def place_runs(staged, key_col: int, shift: int, rbits: int,
@@ -200,11 +199,8 @@ def place_runs(staged, key_col: int, shift: int, rbits: int,
                                 run_dst.data_ptr(), run_src.data_ptr(),
                                 stream)
     _build.check(err, "sa_place_runs")
-    place_runs.launches += 1
+    count("launches: place_runs")
     return out
-
-
-place_runs.launches = 0
 
 
 def radix_pass(cols, key_col: int, shift: int, rbits: int, staging=None):
@@ -290,7 +286,7 @@ def _histograms(words, plan, rbits: int) -> torch.Tensor:
                                       field(0), field(1), field(2), rbits,
                                       hist.data_ptr(), stream)
     _build.check(err, "sa_digit_histograms")
-    digit_histograms.launches += 1
+    count("launches: digit_histograms")
     return hist
 
 
@@ -305,9 +301,6 @@ def digit_histograms(words, live_bits, rbits: int = RBITS):
     if _device_kind(words[0], "digit_histograms") == "cpu":
         return _histograms_reference(words, plan, rbits)
     return _histograms(words, plan, rbits)
-
-
-digit_histograms.launches = 0
 
 
 def plan_passes(hist: torch.Tensor):
@@ -451,11 +444,8 @@ def onesweep_pass(cols, key_col: int, shift: int, rbits: int, digit_starts,
                                    status.data_ptr(), counter.data_ptr(),
                                    epoch, stream)
     _build.check(err, "sa_onesweep_pass")
-    onesweep_pass.launches += 1
+    count("launches: onesweep_pass")
     return out
-
-
-onesweep_pass.launches = 0
 
 
 def sort_passes(cols, per_word: list[int], rbits: int, histograms,
@@ -492,6 +482,12 @@ def _max_words(payload) -> int:
     """Key words one sort takes: a pass carries MAX_COLS columns, so 3
     beside a payload and 4 in a keys-only sort."""
     return MAX_COLS - (payload is not None)
+
+
+def sort_bytes(rows: int, columns: int) -> int:
+    """Bytes a sort of ``rows`` rows of ``columns`` int32 columns must
+    move, whatever its passes: every column read once and written once."""
+    return 2 * rows * columns * 4
 
 
 def radix_sort_words_reference(words, payload, live_bits):
@@ -531,13 +527,17 @@ def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
     Returns (words, payload), sorted. On CUDA tensors it runs one
     digit_histograms launch (two for four words) and one onesweep_pass
     launch per pass whose digit is not constant, of ceil(live_bits /
-    rbits) per word, and adds to ``passes_run`` and ``passes_skipped``;
-    on CPU tensors it runs ``radix_sort_words_reference``."""
+    rbits) per word, and adds to the "passes_run" and "passes_skipped"
+    counters; on CPU tensors it runs ``radix_sort_words_reference``.
+    Either adds ``sort_bytes`` to "sort_bytes"."""
     per_word = _check_words(words, payload, live_bits, _max_words(payload))
     _check_rbits(rbits)
-    if _device_kind(words[0], "radix_sort_words") == "cpu":
-        return radix_sort_words_reference(words, payload, per_word)
     cols = _sort_columns(words, payload)
+    moved = sort_bytes(words[0].shape[0], len(cols))
+    if _device_kind(words[0], "radix_sort_words") == "cpu":
+        out = radix_sort_words_reference(words, payload, per_word)
+        count("sort_bytes", moved)
+        return out
     lookback = LookBack(words[0].shape[0], len(pass_plan(per_word, rbits)),
                         words[0].device)
 
@@ -546,10 +546,7 @@ def radix_sort_words(words, payload, live_bits, rbits: int = RBITS):
 
     run, skipped = sort_passes(cols, per_word, rbits, _split_histograms,
                                one_pass)
-    radix_sort_words.passes_run += run
-    radix_sort_words.passes_skipped += skipped
+    count("passes_run", run)
+    count("passes_skipped", skipped)
+    count("sort_bytes", moved)
     return list(words), payload
-
-
-radix_sort_words.passes_run = 0
-radix_sort_words.passes_skipped = 0

@@ -483,7 +483,8 @@ def _sharded_routes(t: torch.Tensor, p: int, tag: str,
     warm-up first when ``warm``, then two runs) and the sharded doubling
     plus the distributed PLCP (``msd=False``, the LCP reroute held off),
     once."""
-    from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+    from hpc_suffix_array_tpu_torch.kernels import (
+        pass_counts, reset_launch_counts)
     from hpc_suffix_array_tpu_torch.parallel import (
         build_lcp_array_sharded, build_suffix_array_sharded,
         build_suffix_array_sharded_big, make_mesh)
@@ -499,14 +500,14 @@ def _sharded_routes(t: torch.Tensor, p: int, tag: str,
     runs = []
     for _ in range(2):
         info: dict = {}
-        radix_sort_words.passes_run = 0
+        reset_launch_counts()
         s, peak, out = _timed_peak(lambda: carried(info))
         runs.append(f"{s:.4f}")
         del out
     say("sharded", f"{tag} P={p} carried keys: chain "
                    f"{info.get('chain_mode')}, words {info.get('n_words')}, "
                    f"sorts {info.get('msd_sorts')}, radix passes run "
-                   f"{radix_sort_words.passes_run}; SA+LCP s {runs}; peak "
+                   f"{pass_counts()['passes_run']}; SA+LCP s {runs}; peak "
                    f"{gib(peak)}")
     torch.cuda.empty_cache()
     info = {}

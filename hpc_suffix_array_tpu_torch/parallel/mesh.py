@@ -30,7 +30,7 @@ Pairs of shards on one process exchange as before; across processes
 each process's local stack, the reductions a local reduce then
 ``all_reduce``, and ``all_to_all`` one ``all_to_all_single``. Under the
 gloo backend, which carries host tensors, every crossing is staged
-through host memory (``record_function`` "gloo host stage"). Every
+through host memory (the span "gloo host stage"). Every
 process must call the same collectives in the same order, so a host
 branch may only read values that are the same on every process: a
 reduced scalar, never a shard's own.
@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from hpc_suffix_array_tpu_torch.device import resolve_device
+from hpc_suffix_array_tpu_torch.utils.profiling import span
 
 
 class Mesh:
@@ -211,7 +212,7 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     card tensor under gloo (which carries host tensors)."""
     t = t.contiguous()
     if t.device.type != "cpu" and dist.get_backend() == "gloo":
-        with torch.profiler.record_function("gloo host stage"):
+        with span("gloo host stage"):
             return t.cpu()
     return t
 
@@ -230,7 +231,7 @@ def _arrive(t: torch.Tensor, device) -> torch.Tensor:
     """A received tensor on ``device`` (the host-to-card leg of a gloo
     stage)."""
     if t.device != torch.device(device):
-        with torch.profiler.record_function("gloo host stage"):
+        with span("gloo host stage"):
             return t.to(device)
     return t
 

@@ -10,15 +10,24 @@ Counterpart of ``hpc_suffix_array_tpu/utils/profiling.py``:
     trace (``chrome://tracing``, Perfetto) into a directory;
   * ``read_trace`` / ``device_busy``: the device's kernels and copies
     out of such a trace, and the busy and idle share of the window
-    between the first and the last of them.
+    between the first and the last of them;
+  * the recorder: ``span`` (named host intervals, and CUDA events at
+    both ends of a device span), ``count`` (integer counters) and
+    ``record`` (one build's spans and counters, written into the build's
+    ``info``). Spans and counters stay in memory; a ``torch.profiler``
+    session sees every span as a ``record_function`` of its name, so the
+    Chrome trace (``device_trace``) is their only export.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import pathlib
 import time
+
+import torch
 
 from hpc_suffix_array_tpu_torch.device import resolve_device, synchronize
 
@@ -153,3 +162,234 @@ def device_busy(events: list[dict], n_top: int = 10, n_gaps: int = 5) -> dict:
                   "host": host_during(t0, t0 + g)}
                  for g, t0, a, b in gaps[:n_gaps]],
     }
+
+
+# --- the span-and-counter recorder ------------------------------------------
+
+# Holds Python's copy of the profiler's on flag (set while a
+# ``torch.profiler`` session records): one attribute read, where
+# ``record_function`` costs microseconds even with the profiler off.
+_PROF = torch.autograd.profiler
+
+
+class Record:
+    """One build's spans and counters.
+
+    ``spans`` holds one ``[name, start, end, parent]`` per span, in the
+    order the spans opened: host seconds on ``time.perf_counter``'s
+    clock (end None while the span is open) and the index of the
+    innermost span open at its start (-1 for none). ``counters`` maps a
+    name to an int. Device spans wait in ``pending`` as (index, start
+    event, end event) until ``resolve`` reads them into ``device_ms``."""
+
+    def __init__(self):
+        self.spans: list[list] = []
+        self.open: list[int] = []
+        self.pending: list[tuple] = []
+        self.device_ms: dict[int, float] = {}
+        self.counters: dict[str, int] = {}
+
+    def mark(self) -> int:
+        """The index of the next span: ``totals(since=mark())`` reads the
+        spans opened after this call."""
+        return len(self.spans)
+
+    def totals(self, since: int = 0) -> dict:
+        """name -> {"ms", "calls"} summed over the closed spans from
+        index ``since``, with "device_ms" for resolved device spans."""
+        out: dict = {}
+        for i in range(since, len(self.spans)):
+            name, t0, t1, _ = self.spans[i]
+            if t1 is None:
+                continue
+            acc = out.setdefault(name, {"ms": 0.0, "calls": 0})
+            acc["ms"] += 1e3 * (t1 - t0)
+            acc["calls"] += 1
+            if i in self.device_ms:
+                acc["device_ms"] = (acc.get("device_ms", 0.0)
+                                    + self.device_ms[i])
+        return out
+
+    def self_ms(self) -> dict:
+        """name -> summed ms of the closed spans less the time their
+        direct children cover."""
+        own = [1e3 * (t1 - t0) if t1 is not None else 0.0
+               for _, t0, t1, _ in self.spans]
+        for _, t0, t1, parent in self.spans:
+            if parent >= 0 and t1 is not None:
+                own[parent] -= 1e3 * (t1 - t0)
+        out: dict = {}
+        for (name, _, t1, _), ms in zip(self.spans, own):
+            if t1 is not None:
+                out[name] = out.get(name, 0.0) + ms
+        return out
+
+    def resolve(self) -> None:
+        """Device ms of every pending span whose end event has completed;
+        the others stay pending. Waits for nothing."""
+        left = []
+        for i, a, b in self.pending:
+            if b.query():
+                self.device_ms[i] = a.elapsed_time(b)
+            else:
+                left.append((i, a, b))
+        self.pending = left
+
+    def summary(self) -> dict:
+        """The ``info`` keys of the build: ``spans_ms``, ``span_self_ms``
+        and ``counters``."""
+        spans = {name: {k: round(v, 3) if isinstance(v, float) else v
+                        for k, v in acc.items()}
+                 for name, acc in self.totals().items()}
+        return {"spans_ms": spans,
+                "span_self_ms": {k: round(v, 3)
+                                 for k, v in self.self_ms().items()},
+                "counters": dict(self.counters)}
+
+
+_open: Record | None = None
+_process_spans: dict[str, list] = {}        # name -> [ms, calls]
+_process_counters: dict[str, int] = {}
+
+
+def _event(device) -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class span:
+    """A named host interval; a context manager, or a decorator of a
+    function whose every call it covers.
+
+    With a build record open (``record``) it goes into the record, under
+    the innermost open span; outside one, into the process table
+    (``process_spans``), as does every ``process`` span. While a
+    ``torch.profiler`` session records, it also opens
+    ``record_function(name)``, so the trace holds it on the clock of the
+    device's kernels. With no record, no profiler and ``process`` False
+    it does nothing beyond one flag check.
+
+    ``device``: the device the enclosed work is queued on. A CUDA device
+    makes it a device span: inside a record, a CUDA event is recorded on
+    the device's current stream at each end, and ``resolve`` reads their
+    interval after a host read that waited for it. It adds no
+    synchronisation and allocates no device memory."""
+
+    __slots__ = ("name", "device", "process", "_rec", "_i", "_t0", "_rf",
+                 "_ev")
+
+    def __init__(self, name: str, device=None, process: bool = False):
+        self.name, self.process = name, process
+        self.device = (torch.device(device) if device is not None
+                       and torch.device(device).type == "cuda" else None)
+
+    def __call__(self, fn):
+        name, device, process = self.name, self.device, self.process
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with span(name, device, process):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    def __enter__(self):
+        rec, prof = _open, _PROF._is_profiler_enabled
+        self._t0 = None
+        if rec is None and not prof and not self.process:
+            return self
+        self._rec, self._rf, self._ev = rec, None, None
+        if prof:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if rec is not None:
+            self._i = len(rec.spans)
+            rec.spans.append([self.name, 0.0, None,
+                              rec.open[-1] if rec.open else -1])
+            rec.open.append(self._i)
+            if self.device is not None:
+                self._ev = _event(self.device)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._t0 is None:
+            return
+        t1 = time.perf_counter()
+        rec = self._rec
+        if rec is not None:
+            entry = rec.spans[self._i]
+            entry[1], entry[2] = self._t0, t1
+            rec.open.pop()
+            if self._ev is not None:
+                rec.pending.append((self._i, self._ev,
+                                    _event(self.device)))
+        if rec is None or self.process:
+            acc = _process_spans.setdefault(self.name, [0.0, 0])
+            acc[0] += 1e3 * (t1 - self._t0)
+            acc[1] += 1
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to counter ``name`` in the open record and in the
+    process table (``process_counters``)."""
+    _process_counters[name] = _process_counters.get(name, 0) + k
+    if _open is not None:
+        _open.counters[name] = _open.counters.get(name, 0) + k
+
+
+@contextlib.contextmanager
+def record(top: str, info: dict | None = None, own: bool = False):
+    """The build record of an entry point.
+
+    Inside an open record this joins it, as a span named ``top``.
+    Otherwise, where ``info`` is given or ``own`` is set, it opens a
+    record under the top span ``top`` and on exit writes its
+    ``summary`` (``spans_ms``: name -> summed ms and calls, with
+    ``device_ms`` for device spans; ``span_self_ms``; ``counters``) into
+    ``info``. Yields the record, or None where none is open."""
+    global _open
+    if _open is not None:
+        with span(top):
+            yield _open
+        return
+    if info is None and not own:
+        yield None
+        return
+    rec = _open = Record()
+    try:
+        with span(top):
+            yield rec
+    finally:
+        _open = None
+        rec.resolve()
+        if info is not None:
+            info.update(rec.summary())
+
+
+def resolve() -> None:
+    """Read the open record's finished device spans (call it after a host
+    read that waited for their work)."""
+    if _open is not None and _open.pending:
+        _open.resolve()
+
+
+def process_spans() -> dict:
+    """name -> {"ms", "calls"} of the spans recorded outside any build
+    record, and of every ``process`` span, since the process began."""
+    return {k: {"ms": round(v[0], 3), "calls": v[1]}
+            for k, v in _process_spans.items()}
+
+
+def process_counters() -> dict:
+    """name -> every ``count`` since the process began (or the name's
+    last ``reset_counters``)."""
+    return dict(_process_counters)
+
+
+def reset_counters(*names: str) -> None:
+    """Zero the named counters of the process table."""
+    for name in names:
+        _process_counters.pop(name, None)

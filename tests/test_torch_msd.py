@@ -29,6 +29,7 @@ from hpc_suffix_array_tpu.core import suffix_array as jsuf
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
 from hpc_suffix_array_tpu_torch.core.oracle import (
     lcp_oracle, suffix_array_oracle)
+from hpc_suffix_array_tpu_torch.kernels import launch_counts
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     LookBack, onesweep_pass, onesweep_pass_reference)
 
@@ -486,10 +487,10 @@ def test_onesweep_pass_into_longer_columns_on_card(n, rbits):
     starts_t = torch.from_numpy(starts).cuda()
     got = [torch.full((size,), -3, dtype=torch.int32, device="cuda")
            for _ in cols]
-    before = onesweep_pass.launches
+    before = launch_counts()["onesweep_pass"]
     onesweep_pass(cols, 0, 0, rbits, starts_t, LookBack(n, 1, "cuda"),
                   out=got, digit_counts=counts)
-    assert onesweep_pass.launches == before + 1
+    assert launch_counts()["onesweep_pass"] == before + 1
     want = [torch.full((size,), -3, dtype=torch.int32, device="cuda")
             for _ in cols]
     onesweep_pass_reference(cols, 0, 0, rbits, want, starts_t)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from hpc_suffix_array_tpu_torch.kernels import launch_counts, pass_counts
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     BLOCK, MAX_RADIX, TILE, LookBack, block_digit_sort_reference,
     digit_histograms, digit_histograms_reference, onesweep_pass,
@@ -348,14 +349,14 @@ def test_onesweep_wrappers_have_no_fallback_for_other_devices():
     """Only CPU tensors take the plain versions; other devices that are
     not CUDA raise instead of computing somewhere else."""
     cols = [torch.zeros(64, dtype=torch.int32, device="meta")]
-    before = (digit_histograms.launches, onesweep_pass.launches)
+    before = launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         digit_histograms(cols, 30)
     with pytest.raises(ValueError, match="unsupported device"):
         onesweep_pass(cols, 0, 0, 8,
                       torch.zeros(256, dtype=torch.int32, device="meta"),
                       LookBack(64, 1, "meta"))
-    assert (digit_histograms.launches, onesweep_pass.launches) == before
+    assert launch_counts() == before
 
 
 # --- on the card ---------------------------------------------------------
@@ -384,10 +385,10 @@ def test_onesweep_pass_matches_plain_on_card(n, rbits, shift, key_col,
     others = [np.arange(n), keys ^ 0x5A5A, np.arange(n)[::-1]]
     arrays = others[:key_col] + [keys] + others[key_col:n_cols - 1]
     cols = _on_card(*arrays)
-    before = onesweep_pass.launches
+    before = launch_counts()["onesweep_pass"]
     got = onesweep_pass(cols, key_col, shift, rbits,
                         *_pass_args(cols, key_col, shift, rbits))
-    assert onesweep_pass.launches == before + 1
+    assert launch_counts()["onesweep_pass"] == before + 1
     want = onesweep_pass_reference(cols, key_col, shift, rbits)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -420,9 +421,9 @@ def test_onesweep_pass_is_deterministic_on_card(kind):
 def test_digit_histograms_matches_plain_on_card(n, live_bits, rbits, kind):
     _need_cuda()
     words = _on_card(*[_keys(kind, n, n + i) for i in range(len(live_bits))])
-    before = digit_histograms.launches
+    before = launch_counts()["digit_histograms"]
     got = digit_histograms(words, live_bits, rbits)
-    assert digit_histograms.launches == before + 1
+    assert launch_counts()["digit_histograms"] == before + 1
     want = digit_histograms_reference(words, live_bits, rbits)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -441,25 +442,22 @@ def test_radix_sort_words_skips_passes_on_card(live_bits, kinds, rbits):
     passes. The kernels run, K2 and K3 do not, and the result equals the
     plain sort."""
     _need_cuda()
-    from hpc_suffix_array_tpu_torch.kernels.radix import (
-        block_digit_sort, place_runs)
     n = 300_001
     words = [_keys(k, n, i) for i, k in enumerate(kinds)]
     pay = np.arange(n, dtype=np.int32)
     plan = pass_plan(live_bits, rbits)
-    before = (radix_sort_words.passes_run, radix_sort_words.passes_skipped,
-              onesweep_pass.launches, digit_histograms.launches,
-              block_digit_sort.launches, place_runs.launches)
+    before = {**launch_counts(), **pass_counts()}
     got_w, got_p = radix_sort_words(_on_card(*words), _cols(pay)[0].cuda(),
                                     live_bits, rbits)
-    run = radix_sort_words.passes_run - before[0]
-    skipped = radix_sort_words.passes_skipped - before[1]
+    got = {k: v - before[k]
+           for k, v in {**launch_counts(), **pass_counts()}.items()}
+    run, skipped = got["passes_run"], got["passes_skipped"]
     assert run + skipped == len(plan)
     if "equal" in kinds:
         assert skipped >= -(-live_bits[kinds.index("equal")] // rbits)
-    assert onesweep_pass.launches - before[2] == run
-    assert digit_histograms.launches - before[3] == 1
-    assert (block_digit_sort.launches, place_runs.launches) == before[4:]
+    assert got["onesweep_pass"] == run
+    assert got["digit_histograms"] == 1
+    assert got["block_digit_sort"] == got["place_runs"] == 0
     want_w, want_p = radix_sort_words_reference(
         _on_card(*words), _cols(pay)[0].cuda(), live_bits)
     torch.cuda.synchronize()

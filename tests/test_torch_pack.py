@@ -20,6 +20,7 @@ from hpc_suffix_array_tpu.core.suffix_array import (
     pack_ranks_kernel as jax_pack_ranks_kernel)
 from hpc_suffix_array_tpu.kernels.pack import pack_ranks_pallas
 from hpc_suffix_array_tpu_torch.core import refine as trf
+from hpc_suffix_array_tpu_torch.kernels import launch_counts
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
 
@@ -119,12 +120,12 @@ def test_pack_has_no_fallback_for_other_devices():
     CUDA raises instead of computing somewhere else."""
     text = torch.zeros(128, dtype=torch.uint8, device="meta")
     remap = torch.zeros(256, dtype=torch.int32, device="meta")
-    before = (pack_ranks.launches, pack_words.launches)
+    before = launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         pack_ranks(text, remap, 6, 5, 128)
     with pytest.raises(ValueError, match="unsupported device"):
         pack_words(text, remap, 6, 5, 128, 2)
-    assert (pack_ranks.launches, pack_words.launches) == before
+    assert launch_counts() == before
 
 
 def _word_inputs(seed, n, bits, minpad):
@@ -255,9 +256,9 @@ def test_pack_kernel_matches_plain_on_card(n, bits, h0):
     t = torch.from_numpy(text).cuda()
     r = torch.from_numpy(remap).cuda()
     for n_real in (n, n // 3):
-        before = pack_ranks.launches
+        before = launch_counts()["pack_ranks"]
         got = pack_ranks(t, r, bits, h0, n_real)
-        assert pack_ranks.launches == before + 1
+        assert launch_counts()["pack_ranks"] == before + 1
         want = pack_ranks_reference(t, r, bits, h0, n_real)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -300,10 +301,10 @@ def test_pack_words_offsets_on_card(bits, spw, n_words):
     for offset in range(8):
         for n_real, n_out in ((n, n), (n - 3, n - offset), (n, 4097),
                               (n - 9, 100)):
-            before = pack_words.launches
+            before = launch_counts()["pack_words"]
             got = pack_words(t, tab, bits, spw, n_real, n_words,
                              offset=offset, n_out=n_out)
-            assert pack_words.launches == before + 1
+            assert launch_counts()["pack_words"] == before + 1
             want = pack_words_reference(t, tab, bits, spw, n_real, n_words,
                                         offset=offset, n_out=n_out)
             torch.cuda.synchronize()

@@ -27,7 +27,7 @@ from hpc_suffix_array_tpu_torch.core.bigsort import packing_mode
 from hpc_suffix_array_tpu_torch.core.oracle import (
     lcp_oracle, suffix_array_oracle)
 from hpc_suffix_array_tpu_torch.core.suffix_array import alphabet_remap
-from hpc_suffix_array_tpu_torch.kernels import pack
+from hpc_suffix_array_tpu_torch.kernels import launch_counts
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     _histograms_reference, _split_histograms, pass_plan, radix_sort_words,
     radix_sort_words_reference)
@@ -587,11 +587,11 @@ def test_four_shards_on_card_match_cpu(name):
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     text = _text(name)
     info: dict = {}
-    before = pack.pack_words.launches
+    before = launch_counts()["pack_words"]
     sa, lcp = tbig.build_suffix_array_sharded_big(
         torch.from_numpy(text.copy()).cuda(),
         tpar.make_mesh(4, devices=["cuda:0"]), want_lcp=True, info=info)
-    assert pack.pack_words.launches - before == 4 * info["msd_sorts"]
+    assert launch_counts()["pack_words"] - before == 4 * info["msd_sorts"]
     c_sa, c_lcp = tbig.build_suffix_array_sharded_big(
         text, _tmesh(4), want_lcp=True)
     assert torch.equal(sa.cpu(), c_sa) and torch.equal(lcp.cpu(), c_lcp)

@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from hpc_suffix_array_tpu_torch.kernels import launch_counts, pass_counts
 from hpc_suffix_array_tpu_torch.kernels.radix import (
-    BLOCK, block_digit_sort, block_digit_sort_reference, onesweep_pass,
-    place_runs, place_runs_reference, radix_pass, radix_sort_words,
+    BLOCK, block_digit_sort, block_digit_sort_reference, place_runs,
+    place_runs_reference, radix_pass, radix_sort_words,
     radix_sort_words_reference, run_offsets)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -192,12 +193,12 @@ def test_radix_has_no_fallback_for_other_devices():
     """Only CPU tensors take the plain versions; other devices that are
     not CUDA raise instead of computing somewhere else."""
     cols = [torch.zeros(64, dtype=torch.int32, device="meta")]
-    before = (block_digit_sort.launches, place_runs.launches)
+    before = launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         block_digit_sort(cols, 0, 0, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         radix_sort_words(cols, cols[0].clone(), 30)
-    assert (block_digit_sort.launches, place_runs.launches) == before
+    assert launch_counts() == before
 
 
 # --- on the card --------------------------------------------------------
@@ -215,9 +216,9 @@ def test_kernels_match_plain_on_card(n, rbits, shift, kind):
     _need_cuda()
     keys = _keys(kind, n, n + shift)
     cols = [c.cuda() for c in _cols(keys, np.arange(n), keys ^ 0x5A5A)]
-    before = block_digit_sort.launches
+    before = launch_counts()["block_digit_sort"]
     staged, hist = block_digit_sort(cols, 0, shift, rbits)
-    assert block_digit_sort.launches == before + 1
+    assert launch_counts()["block_digit_sort"] == before + 1
     want_staged, want_hist = block_digit_sort_reference(cols, 0, shift,
                                                         rbits)
     torch.cuda.synchronize()
@@ -225,9 +226,9 @@ def test_kernels_match_plain_on_card(n, rbits, shift, kind):
     for g, w in zip(staged, want_staged):
         assert torch.equal(g, w)
     offs = run_offsets(hist)
-    before = place_runs.launches
+    before = launch_counts()["place_runs"]
     got = place_runs(staged, 0, shift, rbits, *offs)
-    assert place_runs.launches == before + 1
+    assert launch_counts()["place_runs"] == before + 1
     want = place_runs_reference(staged, 0, shift, rbits, *offs)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -263,14 +264,15 @@ def test_radix_sort_words_per_word_live_bits_on_card():
     n = 1 << 20
     words = _mixed_words([22, 30, 30], n, 3)
     pay = np.arange(n, dtype=np.int32)
-    before = (radix_sort_words.passes_run, radix_sort_words.passes_skipped,
-              onesweep_pass.launches, block_digit_sort.launches)
+    before = {**launch_counts(), **pass_counts()}
     got_w, got_p = radix_sort_words([c.cuda() for c in _cols(*words)],
                                     _cols(pay)[0].cuda(), [22, 30, 30])
-    run = radix_sort_words.passes_run - before[0]
-    assert run + radix_sort_words.passes_skipped - before[1] == 11
-    assert onesweep_pass.launches - before[2] == run
-    assert block_digit_sort.launches == before[3]
+    got = {k: v - before[k]
+           for k, v in {**launch_counts(), **pass_counts()}.items()}
+    run = got["passes_run"]
+    assert run + got["passes_skipped"] == 11
+    assert got["onesweep_pass"] == run
+    assert got["block_digit_sort"] == 0
     want_w, want_p = radix_sort_words_reference(
         [c.cuda() for c in _cols(*words)], _cols(pay)[0].cuda(),
         [22, 30, 30])

@@ -24,11 +24,12 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      of adjacent keys from xor and the highest set bit.
   5. *Chain mode / residue / refinement*: globally periodic texts
      resolve their ties by the chain rule after a period check
-     (``_period_mismatches``); otherwise the window-tied pairs are
-     extracted and ordered on the host (``_resolve_residue_host``, copied
-     from the JAX package) within its cap, and past it by the device
-     tie refinement (``core/refine.py``), whose remainder the same host
-     pass closes.
+     (``_period_mismatches``); otherwise the window-tied groups are
+     extracted and ordered on the host (``_resolve_residue_host``: from
+     the depth the keys proved, by doubling byte windows) within its
+     cap, and past it by the device tie refinement
+     (``core/refine.py``), whose remainder the same host pass closes
+     from the depth the rounds proved.
 
 The MSD bucket builder (``prepare_big``/``execute_big``, the JAX
 package's carried-keys bucket sort for texts past the direct route)
@@ -77,7 +78,6 @@ exist).
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 from dataclasses import dataclass, field
@@ -94,7 +94,10 @@ from hpc_suffix_array_tpu_torch.utils.profiling import (
     count, record, resolve, span)
 
 RESIDUE_SLOTS = 1 << 15          # extracted tie members (the JAX cap)
-RESIDUE_WIN = 64     # bytes compared vectorized before the exact fallback
+RESIDUE_WIN = 64     # bytes of the host residue's first extension step
+# Rows x window bytes one extension step of the host residue may read;
+# the window doubles each step up to this budget.
+RESIDUE_STEP_BYTES = 1 << 24
 # Largest text the direct builder takes (``SA_DIRECT_MAX``) unless the
 # router prefers the MSD builder above ``SA_DIRECT_CROSS``. On an H100
 # 80GB HBM3 (700 W) the direct build beat the MSD build at 2^26, 2^27
@@ -341,13 +344,21 @@ def post_sort(words, s_idx: torch.Tensor, n: int, spw: int, bits: int,
 
 
 def _extract_ties(tie: torch.Tensor, sa: torch.Tensor):
-    """(slots int64[P], idx int32[P]) of every tie-group member, slots
-    ascending. A group contributes all its members: the flag marks the
-    later element of each tied pair, heads join via their successor."""
+    """(slots int64[P], idx int32[P], head bool[P]) of every tie-group
+    member, slots ascending; ``head`` marks each group's first member. A
+    group contributes all its members: the flag marks the later element
+    of each tied pair, heads join via their successor."""
     member = tie.clone()
     member[:-1] |= tie[1:]
     slots = torch.nonzero(member).view(-1)
-    return slots, sa[slots]
+    return slots, sa[slots], ~tie[slots]
+
+
+def key_depth(nw: int, spw: int, minpad: bool) -> int:
+    """Symbols through which equal carried keys prove two suffixes equal:
+    ``nw * spw`` under reserved-0 packing, 0 under minpad (a suffix that
+    ends inside the window pads with the minimum symbol)."""
+    return 0 if minpad else nw * spw
 
 
 def _apply_patch(sa: torch.Tensor, slots: torch.Tensor,
@@ -378,7 +389,7 @@ def _period_mismatches(text: torch.Tensor, d: int, n: int) -> int:
     return int((text[:n - d] != text[d:n]).sum())
 
 
-# --- host residue (numpy, as in the JAX package) ---------------------------
+# --- host residue (numpy) ---------------------------------------------------
 
 def _suffix_less(arr: np.ndarray, a: int, b: int, n: int,
                  step: int = 4096) -> bool:
@@ -420,8 +431,9 @@ def _suffix_lcp(arr: np.ndarray, a: int, b: int, n: int,
 class ResidueDepthError(Exception):
     """A residue tie is undecided within a bounded-window text view.
 
-    Raised only by views that cannot read the whole text (the
-    multi-process ``parallel/bigsort.py::_GatheredView``); callers fall
+    Raised only for views that cannot read the whole text (the
+    multi-process ``parallel/bigsort.py::_GatheredView``, whose
+    ``DEEP_WIN`` bounds the depth the closer may read); callers fall
     back to the doubling builder, which resolves ties of any depth."""
 
 
@@ -429,119 +441,150 @@ class _ArrView:
     """Whole-text accessor for residue resolution.
 
     The view contract (shared with ``parallel/bigsort.py::
-    _GatheredView``): fetch(idxs, K) -> int16[len(idxs), K] suffix
-    windows, -1 past the end (a shorter suffix that is a prefix orders
-    first); suffix_less(a, b) / suffix_lcp(a, b): exact order / lcp for
-    the rare pairs equal through the whole RESIDUE_WIN window."""
+    _GatheredView``): fetch(starts, K) -> uint8[len(starts), K], the K
+    bytes from each start, 0 past the end of the text (the closer knows
+    each row's length and orders a shorter suffix that is a prefix
+    first). A view may bound the depth it serves with ``DEEP_WIN``; this
+    one reads the whole text."""
 
     def __init__(self, arr: np.ndarray, n: int):
         self.arr, self.n = arr, n
 
-    def fetch(self, idxs: np.ndarray, K: int) -> np.ndarray:
-        pos = idxs.astype(np.int64)[:, None] + np.arange(K, dtype=np.int64)
-        return np.where(pos < self.n,
-                        self.arr[np.minimum(pos, self.n - 1)
-                                 ].astype(np.int16),
-                        np.int16(-1))
+    def fetch(self, starts: np.ndarray, K: int) -> np.ndarray:
+        starts = np.asarray(starts, np.int64)
+        out = np.zeros((len(starts), K), np.uint8)
+        inner = starts <= self.n - K
+        if inner.any():
+            out[inner] = np.lib.stride_tricks.sliding_window_view(
+                self.arr[:self.n], K)[starts[inner]]
+        # Fewer than K distinct starts reach past the end.
+        for i in np.flatnonzero(~inner):
+            tail = self.arr[starts[i]:self.n]
+            out[i, :len(tail)] = tail
+        return out
 
-    def suffix_less(self, a: int, b: int) -> bool:
-        return _suffix_less(self.arr, a, b, self.n)
 
-    def suffix_lcp(self, a: int, b: int) -> int:
-        return _suffix_lcp(self.arr, a, b, self.n)
-
-
-def _resolve_residue_host(arr, slots: np.ndarray,
-                          idxs: np.ndarray, n: int, want_lcp: bool = False):
+def _resolve_residue_host(arr, slots: np.ndarray, idxs: np.ndarray, n: int,
+                          want_lcp: bool = False, heads=None,
+                          depth: int = 0):
     """Exact order for the tied elements (host comparison).
 
-    Groups are runs of consecutive slots; order within each group = full
-    suffix order. Returns (ascending slots, idx aligned to them,
-    lcp-patch slots, lcp-patch values). The lcp patches cover every
-    group-internal adjacent pair; the key-derived lcp at a group's edge
-    is invariant under the reorder (exact under reserved-0 packing; under
-    minpad the final ``_clamp_lcp`` makes it exact, so that clamp must
-    run after this patch).
+    Groups are the segments that ``heads`` (bool, aligned to ``slots``)
+    starts, each tied through its first ``depth`` symbols; with
+    ``heads=None`` they are runs of consecutive slots, read from depth 0
+    (touching runs merge there, which is harmless at depth 0). Order
+    within each group = full suffix order. Returns (ascending slots, idx
+    aligned to them, lcp-patch slots, lcp-patch values). The lcp patches
+    cover every group-internal adjacent pair; the lcp at a group's head
+    is invariant under the reorder and kept (the key-derived value,
+    exact under reserved-0 packing, or under minpad after the final
+    ``_clamp_lcp``, which must run after this patch; or the value the
+    refinement round that split the groups recorded).
 
-    Vectorized: one RESIDUE_WIN-byte window per member, np.lexsort within
-    groups, and the exact comparison only for pairs equal through the
-    whole window.
+    Vectorized, by extension steps over the still-tied rows only: each
+    reads the W bytes from ``idx + off`` (``off`` from ``depth``, W from
+    ``RESIDUE_WIN`` doubling while rows x W stays within
+    ``RESIDUE_STEP_BYTES``), sorts the rows by (group, window, bytes
+    left) with one argsort of big-endian byte records, splits groups
+    where the windows differ and records ``off + first differing byte``
+    at each new boundary. Past-the-end bytes read 0 and the bytes-left
+    key orders a shorter suffix that is a prefix first, so the order and
+    the LCPs are exact at any depth in about log2(deepest tie) steps; no
+    Python loop runs over pairs.
 
     ``arr`` is the host text (uint8[n]) or a view with the ``_ArrView``
     contract: the multi-process build passes one backed by window
-    gathers, so no process needs the whole text."""
+    gathers, so no process needs the whole text; a view's ``DEEP_WIN``
+    bounds the depth read, past which ResidueDepthError is raised.
+    Counts ``residue_members`` and ``residue_steps``."""
     view = arr if hasattr(arr, "fetch") else _ArrView(arr, n)
     order = np.argsort(slots, kind="stable")
-    slots, idxs = slots[order], idxs[order]
+    slots, out = slots[order], idxs[order].copy()
     P = len(slots)
     if P == 0:
-        return slots, idxs, np.zeros(0, np.int64), np.zeros(0, np.int32)
-    gid = np.cumsum(np.r_[np.int64(0),
-                          (np.diff(slots) != 1).astype(np.int64)])
-    K = RESIDUE_WIN
-    win = view.fetch(idxs, K)
-    valid = win >= 0
-    # lexsort: last key is primary -> (gid, win[:,0], ..., win[:,K-1]).
-    o2 = np.lexsort([win[:, k] for k in range(K - 1, -1, -1)] + [gid])
-    out = idxs[o2]
-    win_s, valid_s, gid_s = win[o2], valid[o2], gid[o2]
-    same_g = gid_s[1:] == gid_s[:-1]
-    eq_win = (win_s[1:] == win_s[:-1]).all(axis=1)
-    # Pairs equal through the full window with both suffixes extending
-    # past it are undecided by the lexsort: fix their runs exactly.
-    undecided = same_g & eq_win & valid_s[1:, K - 1] & valid_s[:-1, K - 1]
-    if undecided.any():
-        run_edges = np.flatnonzero(np.diff(
-            np.r_[False, undecided, False].astype(np.int8)))
-        if hasattr(view, "prefetch"):
-            # A window-gathering view reads every undecided member in one
-            # batch, not one gather per comparison.
-            view.prefetch(sorted({int(out[j]) for lo, hi in
-                                  zip(run_edges[::2], run_edges[1::2])
-                                  for j in range(lo, hi + 1)}))
-        for lo, hi in zip(run_edges[::2], run_edges[1::2]):
-            seg = out[lo:hi + 1].tolist()      # undecided run + its tail
-            seg.sort(key=functools.cmp_to_key(
-                lambda a, b: -1 if view.suffix_less(a, b) else 1))
-            out[lo:hi + 1] = seg
+        return slots, out, np.zeros(0, np.int64), np.zeros(0, np.int32)
+    if heads is None:
+        head, depth = np.r_[True, np.diff(slots) != 1], 0
+    else:
+        head = np.asarray(heads, bool)[order]
+        head[0] = True
+    count("residue_members", P)
+    lcp = np.full(P, -1, np.int64)
+    seg = np.cumsum(head) - 1
+    rows = np.flatnonzero(_tied(head))
+    seg = seg[rows]
+    limit = getattr(view, "DEEP_WIN", None)
+    off, W, steps = int(depth), RESIDUE_WIN, 0
+    while len(rows):
+        if limit is not None:
+            if off >= limit:
+                raise ResidueDepthError(
+                    f"suffixes {int(out[rows[0]])} and {int(out[rows[1]])} "
+                    f"tie past {limit} bytes")
+            W = min(W, limit - off)
+        # One record per row: segment, window (0 past the end, padded
+        # to whole words) and bytes left, all big-endian, so one sort
+        # of the raw records (numpy compares void bytes as unsigned,
+        # first to last) orders by (segment, window, bytes left).
+        Wp = -(-W // 8) * 8
+        starts = out[rows].astype(np.int64) + off
+        left = np.clip(n - starts, 0, W)
+        rec = np.zeros((len(rows), Wp + 16), np.uint8)
+        rec[:, :8] = _be_bytes(seg)
+        rec[:, 8:8 + W] = view.fetch(starts, W)
+        rec[:, 8 + Wp:] = _be_bytes(left)
+        o = np.argsort(rec.view(np.dtype((np.void, Wp + 16))).ravel())
+        out[rows] = out[rows][o]
+        rec, seg, left = rec[o], seg[o], left[o]
+        words = rec.view(np.uint64)
+        diff = (words[1:] != words[:-1]).any(axis=1)
+        if want_lcp:
+            # A new boundary inside an old segment gets its exact LCP.
+            j = np.flatnonzero(diff & (seg[1:] == seg[:-1]))
+            neq = rec[j + 1, 8:8 + W] != rec[j, 8:8 + W]
+            first = np.where(neq.any(axis=1), np.argmax(neq, axis=1), W)
+            lcp[rows[j + 1]] = off + np.minimum(
+                first, np.minimum(left[j], left[j + 1]))
+        new_head = np.r_[True, diff]
+        keep = _tied(new_head)
+        rows, seg = rows[keep], (np.cumsum(new_head) - 1)[keep]
+        off += W
+        fit = RESIDUE_STEP_BYTES // max(len(rows), 1)
+        W = max(RESIDUE_WIN, min(2 * W, 1 << (fit.bit_length() - 1)))
+        steps += 1
+    count("residue_steps", steps)
     if not want_lcp:
         return slots, out, np.zeros(0, np.int64), np.zeros(0, np.int32)
-    # LCP for every group-internal adjacent pair of the final order.
-    win = view.fetch(out, K)
-    neq = win[1:] != win[:-1]
-    has_mm = neq.any(axis=1)
-    first_mm = np.argmax(neq, axis=1)
-    # No mismatch in-window: either one suffix ended inside (lcp = its
-    # length) or both extend (exact fallback below).
-    shorter = np.minimum(n - out[1:].astype(np.int64),
-                         n - out[:-1].astype(np.int64))
-    lv = np.where(has_mm, first_mm, np.minimum(shorter, K)).astype(np.int64)
-    internal = np.flatnonzero(same_g)
-    lslots = slots[internal + 1].astype(np.int64)
-    lvals = lv[internal]
-    deep = internal[(~has_mm[internal]) & (shorter[internal] > K)]
-    if len(deep) and hasattr(view, "prefetch"):
-        view.prefetch(sorted({int(out[j]) for j in deep}
-                             | {int(out[j + 1]) for j in deep}))
-    for j in deep:
-        lvals[np.searchsorted(internal, j)] = view.suffix_lcp(
-            int(out[j]), int(out[j + 1]))
-    return slots, out, lslots, lvals.astype(np.int32)
+    internal = np.flatnonzero(~head)
+    return (slots, out, slots[internal].astype(np.int64),
+            lcp[internal].astype(np.int32))
+
+
+def _tied(head: np.ndarray) -> np.ndarray:
+    """bool mask of the rows whose segment (started by ``head``) holds
+    two or more rows."""
+    return ~head | np.r_[~head[1:], False]
+
+
+def _be_bytes(x: np.ndarray) -> np.ndarray:
+    """uint8[len(x), 8]: each value as a big-endian 64-bit word."""
+    return x.astype(">u8").view(np.uint8).reshape(-1, 8)
 
 
 @span("host: residue")
 def _apply_residue(sa, lcp, arr, patches, n: int, want_lcp: bool):
     """Resolve host residue groups and patch them into sa (and lcp).
 
-    ``patches``: list of (slots int64[], idxs int32[]) per extraction.
+    ``patches``: list of (slots int64[], idxs int32[], heads bool[],
+    depth) per extraction (``_resolve_residue_host``'s arguments).
     Returns (sa, lcp, n_patched)."""
     all_slots, all_vals = [], []
     lcp_slots, lcp_vals = [], []
-    for slots, idxs in patches:
+    for slots, idxs, heads, depth in patches:
         if not len(slots):
             continue
         s_sorted, fixed, ls, lv = _resolve_residue_host(
-            arr, slots, idxs, n, want_lcp=want_lcp)
+            arr, slots, idxs, n, want_lcp=want_lcp, heads=heads, depth=depth)
         all_slots.append(s_sorted.astype(np.int64))
         all_vals.append(fixed)
         lcp_slots.append(ls)
@@ -678,11 +721,13 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
         if redo is None and ties and not chain_mode:
             refine = ties * 2 > RESIDUE_SLOTS or ties > host_cap
             if not refine:
-                slots, idxs = _extract_ties(tie, s_idx)
+                slots, idxs, heads = _extract_ties(tie, s_idx)
                 refine = slots.shape[0] > RESIDUE_SLOTS
                 if not refine:
-                    patches.append((slots.cpu().numpy(),
-                                    idxs.cpu().numpy()))
+                    patches.append((slots.cpu().numpy(), idxs.cpu().numpy(),
+                                    heads.cpu().numpy(),
+                                    key_depth(state["nw"], spw,
+                                              state["minpad"])))
     if redo is not None:
         del s_idx, tie, lcp
         meta.setdefault("rerun", []).append(redo[0])
@@ -1214,14 +1259,16 @@ def _execute_big(state: dict, max_bucket_elems: int | None,
             refine = (int(tie_counts.max()) * 2 > RESIDUE_SLOTS
                       or int(tie_counts.sum()) > host_cap)
             if not refine:
-                slots, idxs = _extract_ties(tie, sa)
+                slots, idxs, heads = _extract_ties(tie, sa)
                 bounds = torch.as_tensor(
                     np.r_[base[live], n].astype(np.int64)).to(dev)
                 cuts = torch.searchsorted(slots, bounds).tolist()
                 refine = max(np.diff(cuts)) > RESIDUE_SLOTS
                 if not refine:
                     slots, idxs = slots.cpu().numpy(), idxs.cpu().numpy()
-                    patches = [(slots[a:z], idxs[a:z])
+                    heads = heads.cpu().numpy()
+                    depth = key_depth(2, plan.spw, plan.minpad)
+                    patches = [(slots[a:z], idxs[a:z], heads[a:z], depth)
                                for a, z in zip(cuts, cuts[1:]) if z > a]
 
     with span("msd: finish"):

@@ -19,9 +19,14 @@ module orders them on the device, as the JAX package does:
      When at most a quarter of the rows is still tied,
      the resolved rows are committed and the rounds go on over the tied
      ones only.
-  3. *Close* the small remainder on the host with the exact comparison
-     of ``core/bigsort.py::_resolve_residue_host``, which decides pairs
-     at any depth, so correctness never depends on the round budget.
+  3. *Close* the small remainder on the host with
+     ``core/bigsort.py::_resolve_residue_host``: each piece hands over
+     its still-tied segments (the heads of ``tied_rows``) and the depth
+     ``d`` its rounds proved them equal through, and the closer extends
+     from there by doubling byte windows until every segment is split.
+     It is exact at any depth, so correctness never depends on the
+     round budget; the boundaries between segments keep the LCPs their
+     rounds recorded.
 
 Refinement packs with reserved-0 codes (past the end is 0, below every
 real code) even when the main build used minpad: a pair whose shorter
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
-    _apply_residue, _high_bit, _sync)
+    _apply_residue, _high_bit, _sync, key_depth)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
 from hpc_suffix_array_tpu_torch.utils.profiling import record, span
@@ -244,7 +249,7 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
     knobs = refine_knobs()
     n, dev = sa.shape[0], sa.device
     bits, spw = refine_packing(int(remap.max()))
-    d0 = 0 if minpad else nw * spw_main
+    d0 = key_depth(nw, spw_main, minpad)
     if not want_lcp:
         lcp = None
 
@@ -300,13 +305,16 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
             rounds_max = max(rounds_max, rounds)
         with span("refine: fetch"):
             if tied:
-                keep, _ = tied_rows(seg)
+                keep, head = tied_rows(seg)
                 if keep.shape[0] > 4 * knobs["host_piece"]:
                     raise RefineOverflow(
                         f"{keep.shape[0]} members still tied after {rounds} "
                         "refinement rounds (> 4*SA_REFINE_HOST_PIECE)")
+                # The segments, each tied through the d symbols the
+                # rounds proved, go to the host closer as they are.
                 host_patches.append((slot[keep].cpu().numpy(),
-                                     idx[keep].cpu().numpy()))
+                                     idx[keep].cpu().numpy(),
+                                     head.cpu().numpy(), d))
             _commit(sa, lcp, slot, idx, patch)
     del pk2, slots, heads
 

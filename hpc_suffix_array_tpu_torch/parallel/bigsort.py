@@ -48,11 +48,11 @@ Two text-access strategies (``tops``) drive the same orchestration
     256-bin presence psum'd over the shards (``_present``), the repeat
     estimate the max over processes of each block's own, the period
     check a d-shifted compare across shard edges (``_period``), and the
-    residue reads bounded text windows through distributed gathers
-    (``_window``, ``_GatheredView``): a tie deeper than ``DEEP_WIN``
-    bytes raises NotImplementedError. Every host branch reads a reduced
-    value, the same on every process, so all processes stay in
-    lockstep. The result stays padded and sharded.
+    residue's extension steps read text windows through distributed
+    gathers (``_window``, ``_GatheredView``): a tie deeper than
+    ``DEEP_WIN`` bytes raises NotImplementedError. Every host branch
+    reads a reduced value, the same on every process, so all processes
+    stay in lockstep. The result stays padded and sharded.
 
 Under ``wide_index`` the outputs are int64 and ``tb`` is read as an
 unsigned 32-bit key, so the padded length must stay below 2^32 (the JAX
@@ -413,53 +413,19 @@ class _GatheredView:
     """Bounded-window text view for residue resolution (multi-process).
 
     Serves the ``_ArrView`` contract (``core/bigsort.py``) from window
-    gathers: ``fetch`` is one ``RESIDUE_WIN`` gather per call;
-    ``suffix_less`` / ``suffix_lcp`` read ``DEEP_WIN``-byte windows
-    (cached, prefetchable) for the rare pairs equal through
-    ``RESIDUE_WIN``, and raise ResidueDepthError for ties deeper than
-    ``DEEP_WIN``: the caller turns that into NotImplementedError and the
-    doubling fallback."""
+    gathers: each ``fetch`` is one gather of the closer's extension
+    step. ``DEEP_WIN`` bounds the depth the closer reads: a tie deeper
+    than that raises ResidueDepthError, which the caller turns into
+    NotImplementedError and the doubling fallback."""
 
     DEEP_WIN = 4096
 
     def __init__(self, tops: "_DistText"):
         self.tops = tops
         self.n = tops.n
-        self._deep: dict[int, np.ndarray] = {}
 
-    def fetch(self, idxs: np.ndarray, K: int) -> np.ndarray:
-        return self.tops.gather_windows(np.asarray(idxs, np.int64), K)
-
-    def prefetch(self, idxs) -> None:
-        missing = [int(i) for i in idxs if int(i) not in self._deep]
-        if missing:
-            win = self.tops.gather_windows(
-                np.asarray(missing, np.int64), self.DEEP_WIN)
-            for i, row in zip(missing, win):
-                self._deep[i] = row
-
-    def _rows(self, a: int, b: int):
-        self.prefetch((a, b))
-        return self._deep[a], self._deep[b]
-
-    def suffix_less(self, a: int, b: int) -> bool:
-        wa, wb = self._rows(int(a), int(b))
-        neq = np.flatnonzero(wa != wb)
-        if len(neq):
-            t = int(neq[0])
-            return bool(wa[t] < wb[t])
-        # -1 marks past the end, so equal windows mean both suffixes
-        # extend past DEEP_WIN (identical suffixes need a == b).
-        raise ResidueDepthError(
-            f"suffixes {a} and {b} tie past {self.DEEP_WIN} bytes")
-
-    def suffix_lcp(self, a: int, b: int) -> int:
-        wa, wb = self._rows(int(a), int(b))
-        neq = np.flatnonzero(wa != wb)
-        if len(neq):
-            return int(neq[0])
-        raise ResidueDepthError(
-            f"suffixes {a} and {b} tie past {self.DEEP_WIN} bytes")
+    def fetch(self, starts: np.ndarray, K: int) -> np.ndarray:
+        return self.tops.gather_windows(np.asarray(starts, np.int64), K)
 
 
 class _DistText:
@@ -523,14 +489,13 @@ class _DistText:
         return _GatheredView(self)
 
     def gather_windows(self, idxs: np.ndarray, W: int) -> np.ndarray:
-        """int16[len(idxs), W] suffix windows (-1 past the end of the
+        """uint8[len(idxs), W] text windows (0 past the end of the
         text)."""
-        RW = min(W, self.m & -self.m)     # a power of two dividing m and W
+        RW = min(W & -W, self.m & -self.m)    # a power of two dividing m, W
         win = first_local(_window(self.texts, (idxs // RW).astype(np.int32),
                                   idxs % RW, W, RW)).cpu().numpy()
         rel = np.arange(W, dtype=np.int64)[None, :]
-        return np.where(idxs[:, None] + rel < self.n, win.astype(np.int16),
-                        np.int16(-1))
+        return np.where(idxs[:, None] + rel < self.n, win, np.uint8(0))
 
 
 def wide_auto(n_pad: int) -> bool:

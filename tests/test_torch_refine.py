@@ -139,6 +139,39 @@ def test_multi_round_with_compaction(monkeypatch):
     assert info["refine_rounds"] >= 3
 
 
+@pytest.mark.parametrize("name,host_piece", [("deep_block", 3000),
+                                             ("words_planted", 256)])
+def test_host_residue_from_the_depth_the_rounds_proved(monkeypatch, name,
+                                                       host_piece):
+    """Rounds stop with members still tied, which reach the host closer
+    as the rounds' segments at the depth they proved (the key depth plus
+    2*spw symbols a round); SA and LCP equal the JAX package's."""
+    _force_refine(monkeypatch, SA_REFINE_HOST_PIECE=host_piece)
+    depths = []
+    real = tbs._resolve_residue_host
+
+    def spy(*args, heads=None, depth=0, **kw):
+        assert heads is not None and heads[0]
+        depths.append(depth)
+        return real(*args, heads=heads, depth=depth, **kw)
+
+    monkeypatch.setattr(tbs, "_resolve_residue_host", spy)
+    if name == "deep_block":
+        text = _deep_block()
+    else:                               # a 600-byte phrase at three sites
+        text = generate_words_text(1 << 17, seed=2)
+        for pos in (40_000, 90_000):
+            text[pos:pos + 600] = text[1000:1600]
+    info = _both(text)
+    assert info["refine_rounds"] >= 1 and info["refine_host_members"] > 0
+    remap = tsuf.alphabet_remap(text)[0]
+    _, spw_main, minpad = tbs.packing_mode(remap)
+    _, spw = trf.refine_packing(int(remap.max()))
+    d = (tbs.key_depth(info["n_words"], spw_main, minpad)
+         + info["refine_rounds"] * 2 * spw)
+    assert depths and set(depths) == {d}
+
+
 def test_multi_piece(monkeypatch):
     _force_refine(monkeypatch, SA_REFINE_PIECE=256)
     info = _both(generate_words_text(1 << 16, seed=9))

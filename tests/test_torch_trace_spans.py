@@ -221,6 +221,20 @@ def test_build_sa_lcp_writes_the_route_spans_and_counters(route,
         assert info["rounds"] > 0 and info["plcp_rounds"] > 0
 
 
+@pytest.mark.parametrize("route", ["direct_residue", "refine"])
+def test_the_host_residue_counts_its_members_and_steps(route, monkeypatch):
+    env, make, path, _, _ = ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+    info: dict = {}
+    tsa.build_sa_lcp(make(), device="cpu", info=info)
+    assert info["path"] == path
+    counters = info["counters"]
+    assert counters["residue_members"] == info["n_patched"] > 0
+    assert 1 <= counters["residue_steps"] <= 64
+    assert "residue_exact_pairs" not in counters
+
+
 def test_the_older_info_keys_and_launch_counts_keep_their_keys(
         monkeypatch):
     for k, v in {"SA_BIG_THRESHOLD": 1000, "SA_DIRECT_CROSS": 0,

@@ -13,7 +13,9 @@ lower bound, improved each round by three steps:
      ``CMP_WIDTH`` bytes of its suffix and its SA predecessor's.
 
 The loop is host-driven (one ``resolved.all()`` sync per round), as in
-the JAX package.
+the JAX package, and bounded by ``PLCP_ROUNDS``: past it host Kasai
+closes the LCP (``lcp_path`` "plcp_kasai"). The JAX package runs up to
+n / CMP_WIDTH rounds, which a long verbatim copy can take.
 
 The router follows the JAX package's ``build_lcp_array``:
 
@@ -58,6 +60,12 @@ CMP_WIDTH = 32
 CHUNK = 1 << 22
 # Pointer-jumping steps per round (each approximately doubles verified runs).
 JUMP_STEPS = 2
+# Rounds PLCP runs before host Kasai closes the LCP instead. Propagation
+# and jumping resolve most texts in 1-5 rounds, but long verbatim copies
+# can advance by about CMP_WIDTH bytes a round: unbounded, PLCP took 54 s
+# a build on 1 GiB English with copies of 64 KiB-1 MiB, and one seed did
+# not end in 240 s (PERF.md).
+PLCP_ROUNDS = 4096 // CMP_WIDTH
 # Largest n PLCP takes: the extension's int32 positions (iota + cur +
 # offs, up to n - 1 + CMP_WIDTH) must not wrap.
 PLCP_MAX = (1 << 31) - 1 - CMP_WIDTH
@@ -164,7 +172,9 @@ def _plcp_round(text, phi, limit, iota, cur, resolved):
 def plcp_kernel(text: torch.Tensor, sa: torch.Tensor):
     """(plcp int32[n], rounds): plcp[i] = LCP(suffix i, its SA predecessor).
 
-    Raises ValueError above ``PLCP_MAX`` positions."""
+    ``plcp`` is None where ``PLCP_ROUNDS`` rounds left a position
+    unresolved (the caller closes the LCP another way). Raises
+    ValueError above ``PLCP_MAX`` positions."""
     n = text.shape[0]
     if n > PLCP_MAX:
         raise ValueError(f"PLCP takes at most {PLCP_MAX} positions (int32 "
@@ -172,13 +182,11 @@ def plcp_kernel(text: torch.Tensor, sa: torch.Tensor):
     phi, limit, iota = _plcp_setup(sa)
     cur = torch.zeros(n, dtype=torch.int32, device=text.device)
     resolved = phi < 0
-    rounds = 0
-    # Host-driven convergence: bounded by n/CMP_WIDTH, typically 1-5 rounds.
-    for _ in range(n // CMP_WIDTH + 2):
-        rounds += 1
+    # Host-driven convergence, typically 1-5 rounds.
+    for rounds in range(1, PLCP_ROUNDS + 1):
         if _plcp_round(text, phi, limit, iota, cur, resolved):
-            break
-    return cur, rounds
+            return cur, rounds
+    return None, PLCP_ROUNDS
 
 
 def lcp_from_plcp(plcp: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
@@ -208,12 +216,18 @@ def _sa_lcp_big(text, n: int, *, device, text_dev=None,
                               info, want_lcp=True)
 
 
-def _plcp_lcp(t: torch.Tensor, sa: torch.Tensor,
+def _plcp_lcp(text, t: torch.Tensor, sa: torch.Tensor,
               info: dict | None) -> torch.Tensor:
+    """PLCP, or host Kasai where PLCP stops at its round bound
+    (``lcp_path`` "plcp_kasai")."""
     with span("plcp"):
         plcp, rounds = plcp_kernel(t, sa)
     if info is not None:
         info["plcp_rounds"] = rounds
+    if plcp is None:
+        if info is not None:
+            info["lcp_path"] = "plcp_kasai"
+        return _kasai_host(as_byte_array(text), sa, t.device)
     return lcp_from_plcp(plcp, sa)
 
 
@@ -275,7 +289,7 @@ def _lcp_of_sa(text, t: torch.Tensor, sa: torch.Tensor,
         return _kasai_host(as_byte_array(text), sa, t.device)
     if info is not None:
         info["lcp_path"] = "plcp"
-    return _plcp_lcp(t, sa, info)
+    return _plcp_lcp(text, t, sa, info)
 
 
 def build_sa_lcp(text, *, device, info: dict | None = None,
@@ -336,8 +350,9 @@ def build_lcp_array(text, sa, *, device, info: dict | None = None,
     host Kasai on ``sa`` past it. ``text_dev`` as in
     ``build_suffix_array``.
     ``info``: optional dict that receives ``lcp_path`` ("direct", "msd",
-    "sorted", "window", "plcp" or "kasai_host"); for the sorted-fetch
-    and window routes ``lcp_misses`` (pairs past the window) and
+    "sorted", "window", "plcp", "plcp_kasai" (PLCP stopped at its round
+    bound, host Kasai closed) or "kasai_host"); for the sorted-fetch and
+    window routes ``lcp_misses`` (pairs past the window) and
     ``lcp_finish`` ("none", "chain" or "host"); ``lcp_declined`` (why
     they refused); for PLCP, ``plcp_rounds``; and the build record's keys
     as in ``build_suffix_array`` (top span "lcp")."""

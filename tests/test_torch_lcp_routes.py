@@ -187,3 +187,31 @@ def test_lcp_router_on_card(name, fetch, monkeypatch):
     assert info["lcp_path"] == fetch
     assert lcp.device.type == "cuda"
     assert np.array_equal(lcp.cpu().numpy(), native.lcp_kasai(text, sa))
+
+
+@pytest.mark.parametrize("rounds", ["fixed", "one"])
+def test_plcp_past_its_round_bound_closes_with_host_kasai(rounds,
+                                                          monkeypatch):
+    """On a text with a 64 KiB verbatim copy PLCP runs at most
+    PLCP_ROUNDS rounds (a constant: 4096 bytes of extension a position),
+    and where they leave a position unresolved host Kasai closes the LCP
+    (``lcp_path`` "plcp_kasai"); either way the LCP equals Kasai's. With
+    one round allowed, the copy is left unresolved."""
+    assert tlcp.PLCP_ROUNDS == 4096 // tlcp.CMP_WIDTH
+    _setenv(monkeypatch, SA_LCP_CHAIN_EST=1 << 30)  # PLCP, not carried keys
+    if rounds == "one":
+        monkeypatch.setattr(tlcp, "PLCP_ROUNDS", 1)
+    text = ALNUM[_rng(64).integers(0, 62, 1 << 18)]
+    text[1 << 17:(1 << 17) + (1 << 16)] = text[:1 << 16]
+    sa = native.sa_build(text)
+    info = {}
+    lcp = tsa.build_lcp_array(text, sa, device="cpu", info=info)
+    assert np.array_equal(lcp.numpy(), native.lcp_kasai(text, sa))
+    assert lcp.numpy().max() >= 1 << 16
+    assert 1 <= info["plcp_rounds"] <= tlcp.PLCP_ROUNDS
+    if rounds == "one":
+        assert info["lcp_path"] == "plcp_kasai"
+    else:
+        assert info["lcp_path"] in ("plcp", "plcp_kasai")
+        assert (info["lcp_path"] == "plcp_kasai") == (
+            info["plcp_rounds"] == tlcp.PLCP_ROUNDS)

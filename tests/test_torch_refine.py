@@ -29,6 +29,7 @@ from hpc_suffix_array_tpu.datasets.generate import generate_words_text
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
 from hpc_suffix_array_tpu_torch.core.oracle import (
     lcp_oracle, suffix_array_oracle)
+from hpc_suffix_array_tpu_torch.utils.profiling import record
 
 ALNUM = np.frombuffer(
     b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
@@ -144,32 +145,38 @@ def test_multi_round_with_compaction(monkeypatch):
 def test_host_residue_from_the_depth_the_rounds_proved(monkeypatch, name,
                                                        host_piece):
     """Rounds stop with members still tied, which reach the host closer
-    as the rounds' segments at the depth they proved (the key depth plus
-    2*spw symbols a round); SA and LCP equal the JAX package's."""
+    as the rounds' segments at the depth they proved: every segment's
+    members share that many symbols, at least the key window (the word
+    rounds add 2*spw symbols each, the doubling rounds double it); SA and
+    LCP equal the JAX package's."""
     _force_refine(monkeypatch, SA_REFINE_HOST_PIECE=host_piece)
     depths = []
     real = tbs._resolve_residue_host
 
-    def spy(*args, heads=None, depth=0, **kw):
+    def spy(arr, slots, idxs, n, *args, heads=None, depth=0, **kw):
         assert heads is not None and heads[0]
+        seg = np.cumsum(heads)
+        for g in np.unique(seg):
+            members = idxs[seg == g]
+            assert len(members) >= 2 and members.max() + depth <= n
+            assert len({bytes(arr[i:i + depth]) for i in members}) == 1
         depths.append(depth)
-        return real(*args, heads=heads, depth=depth, **kw)
+        return real(arr, slots, idxs, n, *args, heads=heads, depth=depth,
+                    **kw)
 
     monkeypatch.setattr(tbs, "_resolve_residue_host", spy)
     if name == "deep_block":
         text = _deep_block()
-    else:                               # a 600-byte phrase at three sites
+    else:                               # a 560-byte phrase at three sites
         text = generate_words_text(1 << 17, seed=2)
         for pos in (40_000, 90_000):
-            text[pos:pos + 600] = text[1000:1600]
+            text[pos:pos + 560] = text[1000:1560]
     info = _both(text)
     assert info["refine_rounds"] >= 1 and info["refine_host_members"] > 0
     remap = tsuf.alphabet_remap(text)[0]
     _, spw_main, minpad = tbs.packing_mode(remap)
-    _, spw = trf.refine_packing(int(remap.max()))
-    d = (tbs.key_depth(info["n_words"], spw_main, minpad)
-         + info["refine_rounds"] * 2 * spw)
-    assert depths and set(depths) == {d}
+    assert depths and len(set(depths)) == 1
+    assert depths[0] > tbs.key_depth(info["n_words"], spw_main, minpad)
 
 
 def test_multi_piece(monkeypatch):
@@ -424,3 +431,216 @@ def test_tied_rows():
     rows, head = trf.tied_rows(seg)
     assert rows.tolist() == [0, 1, 3, 4, 5, 7, 8]
     assert head.tolist() == [True, False, True, False, False, True, False]
+
+
+# --- deepening by doubling --------------------------------------------------
+
+def _config_text(name: str, n: int, seed: int, **change) -> np.ndarray:
+    """A text of the benchmark's generator ``name`` (``cellbench/gen``),
+    made on the CPU, with ``change`` laid over its parameters."""
+    import json
+    from importlib import import_module
+    from pathlib import Path
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "cellbench"
+                      / "configs" / f"{name}.json").read_text())
+    gen = import_module(f"cellbench.gen.{cfg['generator']}")
+    params = dict(cfg["generator_params"], **change)
+    return gen.make(n, seed, "cpu", **params).numpy()
+
+
+def _copies(n: int, seed: int) -> np.ndarray:
+    """English with verbatim copies of 4-64 KiB over 5% of the text."""
+    return _config_text("english", n, seed,
+                        copies={"share": 0.05, "lo": 4096, "hi": 65536})
+
+
+def _ab(n: int = 1 << 15) -> np.ndarray:
+    return np.frombuffer(b"ab" * (n // 2), np.uint8).copy()
+
+
+def _abc_tail(n: int = 1 << 15) -> np.ndarray:
+    """Random letters ending in a copy of an earlier 3000-byte block:
+    the last suffixes tie with the block's until they end."""
+    text = np.random.default_rng(13).integers(97, 123, n).astype(np.uint8)
+    text[-3000:] = text[1000:4000]
+    return text
+
+
+def _dna_tail(n: int = 1 << 15) -> np.ndarray:
+    """The same on ACGT (minpad packing)."""
+    rng = np.random.default_rng(14)
+    text = DNA[rng.integers(0, 4, n)].copy()
+    text[-3000:] = text[1000:4000]
+    return text
+
+
+def _two_depths() -> np.ndarray:
+    """Two pieces whose word rounds stop at different depths: binary
+    text with a 300-byte copy (ties that shrink fast), then letters n-z
+    with a 3000-byte block at three sites (ties that stall at once); the
+    shallower piece is brought to the other's depth before the
+    doubling."""
+    rng = np.random.default_rng(5)
+    a = np.frombuffer(b"ab", np.uint8)[rng.integers(0, 2, 1 << 16)].copy()
+    a[30000:30300] = a[1000:1300]
+    b = rng.integers(ord("n"), ord("z") + 1, 1 << 15).astype(np.uint8)
+    b[10000:13000] = b[20000:23000]
+    b[25000:28000] = b[20000:23000]
+    return np.concatenate([a, b, np.frombuffer(b"cdefghijklm", np.uint8)])
+
+
+def _refine_only(text: np.ndarray, info: dict):
+    """The direct build's keys, sort and post-sort (ascending: no chain
+    mode, which would take a periodic text), then ``refine_ties`` over
+    every tie; returns (sa, lcp) as numpy."""
+    state = tbs.prepare_direct(text, device="cpu")
+    n, spw, bits = state["n"], state["spw"], state["bits"]
+    words, s_idx = tbs._sorted_keys(state, False)
+    tie, _, lcp = tbs.post_sort(words, s_idx, n, spw, bits, False, True)
+    sa, lcp = trf.refine_ties(
+        s_idx, tie, lcp, state["text_dev"], remap=state["remap"],
+        spw_main=spw, nw=state["nw"], minpad=state["minpad"],
+        host_text=state["host_text"], want_lcp=True, meta=info)
+    if state["minpad"]:
+        lcp = tbs._clamp_lcp(sa, lcp, n)
+    return sa.numpy(), lcp.numpy()
+
+
+DOUBLING = {
+    # name: (text, environment, (word rounds, doubling rounds) at least)
+    "english_copies_1m": (lambda: _copies(1 << 20, 2**31 + 19), {}, (1, 6)),
+    "english_copies_2m": (lambda: _copies(1 << 21, 3200000002), {}, (1, 6)),
+    "dna_n_runs": (lambda: _config_text("dna", 1 << 20, 3000000002), {},
+                   (1, 3)),
+    "periodic_ab": (_ab, {}, (1, 8)),
+    "periodic_abc": (lambda: np.tile(np.frombuffer(b"abc", np.uint8),
+                                     1 << 13), {}, (1, 8)),
+    "tail_inside_tie": (_abc_tail, {}, (1, 4)),
+    "tail_inside_tie_minpad": (_dna_tail, {}, (1, 4)),
+    "pieces": (lambda: _copies(1 << 20, 77),
+               {"SA_REFINE_PIECE": 1 << 16}, (8, 4)),
+    "pieces_at_two_depths": (_two_depths, {"SA_REFINE_PIECE": 1 << 16,
+                                           "SA_REFINE_HOST_PIECE": 256},
+                             (4, 1)),
+    "round_cap": (_deep_block, {"SA_REFINE_ROUNDS": 2,
+                                "SA_REFINE_HOST_PIECE": 4096}, (1, 2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DOUBLING))
+def test_doubling_matches_the_oracle(monkeypatch, name):
+    """Deepening by doubling gives the oracle's order and every LCP
+    exactly (none capped or left a bound): copies of 4-64 KiB in English
+    of 1 and 2 MiB, a genome with N runs and repeat families (minpad),
+    periodic texts whose ties run to n, suffixes that end inside a tie,
+    a build of several pieces (word rounds in each, then doubling over
+    all), pieces whose word rounds stop at two depths, and a round cap
+    that leaves rows to the host closer."""
+    make, env, (words, doubles) = DOUBLING[name]
+    _force_refine(monkeypatch, **{"SA_REFINE_HOST_PIECE": 16, **env})
+    text = make()
+    want = suffix_array_oracle(text)
+    want_lcp = lcp_oracle(text, want)
+    meta = {}
+    with record("test", meta):
+        sa, lcp = _refine_only(text, meta)
+    assert np.array_equal(sa, want)
+    assert np.array_equal(lcp, want_lcp)
+    counters = meta["counters"]
+    assert counters["refine_word_rounds"] >= words
+    assert counters["refine_doubling_rounds"] >= doubles
+    if name == "round_cap":
+        assert counters["refine_doubling_rounds"] == 2
+        assert meta["refine_host_members"] > 0
+    if name.startswith("pieces"):
+        assert meta["refine_pieces"] >= 2
+    if name.startswith("english_copies"):
+        # Copies of up to 64 KiB from a key depth of 6: about 14 rounds.
+        assert want_lcp.max() >= 1 << 14
+        assert meta["refine_rounds"] <= 16
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 1000, 1 << 15, 50_003])
+def test_range_min_against_brute_force(n):
+    """RangeMin's three levels answer every range like a scan, before
+    and after values fall (``lower``), with UNKNOWN entries."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 1000, n).astype(np.int32)
+    v[rng.random(n) < 0.3] = trf.UNKNOWN
+    t = torch.from_numpy(v.copy())
+    rmq = trf.RangeMin(t)
+    lo = rng.integers(0, n, 4000)
+    span_ = np.minimum(rng.integers(0, n, 4000) >> rng.integers(0, 16, 4000),
+                       n - 1 - lo)
+    hi = lo + span_
+    lo[:3], hi[:3] = [0, 0, n - 1], [n - 1, 0, n - 1]
+
+    def check():
+        got = rmq.query(torch.from_numpy(lo), torch.from_numpy(hi)).numpy()
+        want = [v[a:b + 1].min() for a, b in zip(lo, hi)]
+        assert np.array_equal(got, np.asarray(want, np.int32))
+
+    check()
+    pos = rng.choice(n, max(1, n // 10), replace=False)
+    val = rng.integers(0, 500, len(pos)).astype(np.int32)
+    val = np.minimum(val, v[pos])
+    v[pos] = val
+    t[torch.from_numpy(pos)] = torch.from_numpy(val)
+    rmq.lower(torch.from_numpy(pos), torch.from_numpy(val))
+    check()
+
+
+def test_doubling_lcp_is_the_range_minimum_ahead():
+    """One doubling round by hand: every boundary it splits gets d plus
+    the least LCP between the two ranks' slots, which is the pair's true
+    LCP (brute force), and the ranks then hold the new head slots."""
+    text = _abc_tail(1 << 12)
+    n = len(text)
+    sa_np = suffix_array_oracle(text)
+    lcp_np = lcp_oracle(text, sa_np).astype(np.int32)
+    d = 8
+    # Groups at depth d: runs of slots whose LCP is at least d.
+    head = np.r_[True, lcp_np[1:] < d]
+    tied = ~head | np.r_[~head[1:], False]
+    rows = np.flatnonzero(tied)
+    assert len(rows) > 100
+    sa = torch.from_numpy(sa_np.astype(np.int32))
+    # Each group in scrambled order, as a sort by the first d symbols
+    # would leave it.
+    grp = np.cumsum(head) - 1
+    scr = rows[np.lexsort((np.random.default_rng(2).random(len(rows)),
+                           grp[rows]))]
+    sa[torch.from_numpy(rows)] = torch.from_numpy(sa_np[scr].astype(np.int32))
+    lcp = torch.from_numpy(lcp_np.copy())
+    rh = torch.from_numpy(head[rows])
+    slot = torch.from_numpy(rows.astype(np.int32))
+    idx = sa[slot.long()].clone()
+    rank = trf.rank_array(sa, slot, idx, rh)
+    lcp[slot[~rh].long()] = trf.UNKNOWN
+    rmq = trf.RangeMin(lcp)
+    seg, s_idx, tied_n = trf.doubling_round(
+        trf.segment_ids(rh), idx, slot, rank, lcp, rmq, d)
+    # After one round each group's rows are in order by their first 2d
+    # symbols, and a new segment starts exactly where those differ.
+    got = s_idx.numpy()
+    key = [bytes(text[i:i + 2 * d]) for i in got]
+    same_group = ~head[rows][1:]
+    new_seg = np.diff(seg.numpy()) != 0
+    for j in np.flatnonzero(same_group):
+        assert key[j] <= key[j + 1]
+        assert new_seg[j] == (key[j] != key[j + 1])
+    split = np.flatnonzero(new_seg) + 1
+    inner = split[~head[rows][split]]
+    assert len(inner)
+    for j in inner:
+        x, y = int(got[j - 1]), int(got[j])
+        m = 0
+        while y + m < n and x + m < n and text[x + m] == text[y + m]:
+            m += 1
+        assert d <= m < 2 * d
+        assert int(lcp[rows[j]]) == m
+    heads = slot.numpy()[np.r_[True, np.diff(seg.numpy()) != 0]]
+    assert np.array_equal(rank[s_idx.long()].numpy(),
+                          heads[seg.numpy()])
+    assert tied_n == int((np.diff(seg.numpy()) == 0).sum())

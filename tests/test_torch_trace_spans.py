@@ -186,8 +186,8 @@ ROUTES = {
     "refine": ({"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
                 "SA_HOST_RESIDUE_MAX": 8},
                lambda: generate_words_text(1 << 16, 5), "direct",
-               {"refine", "refine: extract", "refine: pair_table",
-                "refine: rounds", "refine: fetch", "host: residue"},
+               {"refine", "refine: extract", "refine: rounds",
+                "refine: fetch", "host: residue"},
                {"k1_bytes", "sort_bytes"}),
     "doubling_plcp": ({}, lambda: generate_random_text(40_000, 0),
                       "doubling",
@@ -219,6 +219,44 @@ def test_build_sa_lcp_writes_the_route_spans_and_counters(route,
         assert got["host: residue"]["calls"] == 1
     if route == "doubling_plcp":
         assert info["rounds"] > 0 and info["plcp_rounds"] > 0
+
+
+def _planted_dna(n: int = 1 << 16, seed: int = 12) -> np.ndarray:
+    """Random ACGT (minpad packing) with one 2000-byte block at three
+    sites."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    for pos in (20_000, 40_000, 60_000):
+        text[pos:pos + 2000] = text[:2000]
+    return text
+
+
+@pytest.mark.parametrize("case", ["one_piece", "pieces", "minpad"])
+def test_the_refinement_counts_its_rounds_and_depth(case, monkeypatch):
+    """Where the doubling runs, its rank array is built in the span
+    "refine: ranks", inside "refine: rounds", and the record counts the
+    word rounds (at least one a piece, before the deep ties stall
+    them), the doubling rounds and the depth they proved: one piece
+    under reserved-0 packing, several pieces, and minpad."""
+    env = {"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
+           "SA_HOST_RESIDUE_MAX": 8, "SA_REFINE_HOST_PIECE": 16}
+    if case == "pieces":
+        env["SA_REFINE_PIECE"] = 2048
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+    info: dict = {}
+    tsa.build_sa_lcp(_planted_dna() if case == "minpad" else _planted(),
+                     device="cpu", info=info)
+    assert info["path"] == "direct"
+    assert (info["refine_pieces"] > 1) == (case == "pieces")
+    counters, spans = info["counters"], info["spans_ms"]
+    assert {"refine_word_rounds", "refine_doubling_rounds",
+            "refine_depth"} <= set(counters)
+    assert spans["refine: ranks"]["calls"] == 1
+    assert spans["refine: ranks"]["ms"] <= spans["refine: rounds"]["ms"]
+    assert counters["refine_word_rounds"] >= info["refine_pieces"]
+    assert counters["refine_doubling_rounds"] >= 1
+    assert counters["refine_depth"] >= 2 ** counters["refine_doubling_rounds"]
 
 
 @pytest.mark.parametrize("route", ["direct_residue", "refine"])

@@ -25,7 +25,9 @@ Drives the port's main paths on the card and checks them:
      positions; 28, 30 and 30 live bits) on 2^28 and 2^22 rows, with
      the passes it ran and skipped, and keys-only (the sharded
      carried-keys block: 2 or 3 alnum words and the tiebreak, 3 and 4
-     columns, the 4-key histograms in two launches) on 2^27 rows;
+     columns, the 4-key histograms in two launches) on 2^27 rows; the
+     post-sort kernel beside post_sort_reference at 2^28 and 2^30 rows
+     of 2 key words with the LCP, with its bytes and bound;
   4. correctness: random alnum, DNA, period-1000 repetitive and words
      at 2^22 (the doubling route) and 2^24 (the direct route; words
      with device tie refinement) through build_suffix_array ->
@@ -224,6 +226,8 @@ from hpc_suffix_array_tpu_torch.kernels import (
     _build, launch_counts, pass_counts, reset_launch_counts)
 from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
+from hpc_suffix_array_tpu_torch.kernels.post_sort import (
+    post_sort, post_sort_bytes, post_sort_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     LookBack, block_digit_sort, block_digit_sort_reference, digit_histograms,
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
@@ -683,6 +687,28 @@ def compare_refine_sort(n: int) -> dict:
             "plain_ms": median_ms(
                 lambda a: radix_sort_words_reference(*a, live),
                 setup=fresh)}
+
+
+def time_post_sort(log2: int) -> dict:
+    """The post-sort kernel beside ``post_sort_reference`` on 2^log2
+    rows of 2 key words with the LCP (k0 sorted over m / 8 values, k1 0
+    or 1, so about half the rows tie; distinct positions): exact, both
+    timed (CUDA events, median of 5), with the bytes a call moves."""
+    m = 1 << log2
+    g = torch.Generator(device="cuda").manual_seed(SEED + log2)
+    k0 = torch.randint(0, m >> 3, (m,), generator=g, device="cuda",
+                       dtype=torch.int32).sort().values
+    k1 = torch.randint(0, 2, (m,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    idx = torch.randperm(m, generator=g, device="cuda").to(torch.int32)
+    args = ([k0, k1], idx, m, 5, 6, False, True)
+    err = exact(post_sort(*args), post_sort_reference(*args),
+                f"post_sort n=2^{log2}")
+    n_bytes = post_sort_bytes(m, 2, True)
+    return {"max_abs_err": err, "bytes": n_bytes,
+            "ms": median_ms(lambda _: post_sort(*args)),
+            "plain_ms": median_ms(lambda _: post_sort_reference(*args)),
+            **bound(n_bytes, 0)}
 
 
 def check_corpus(name: str, text: np.ndarray):
@@ -1935,6 +1961,14 @@ def main() -> int:
               f"launches {r['hist_launches']}; kernel {r['ms']:.3f} ms, "
               f"plain {r['plain_ms']:.3f} ms ({card})")
         torch.cuda.empty_cache()
+    pst = {}
+    for log2 in (28, 30):
+        pst[log2] = r = time_post_sort(log2)
+        phase(f"[3] post_sort n=2^{log2} (2 words, LCP): exact; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; "
+              f"{r['bytes'] / 1e9:.2f} GB, bound {r['bound_ms']:.3f} ms at "
+              f"3.35 TB/s ({card})")
+        torch.cuda.empty_cache()
     sort_err = max([srt["max_abs_err"]]
                    + [r["max_abs_err"] for r in rsrt.values()]
                    + [r["max_abs_err"] for r in ksrt.values()])
@@ -2142,6 +2176,19 @@ def main() -> int:
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
          **bound(2 * 3 * 4 * n + 2 * tiles * 256 * 4, 4 * n)},
+        {"name": "post_sort", "route": "cuda",
+         "source": "hpc_suffix_array_tpu_torch/csrc/post_sort.cu",
+         "replaces": None,
+         "launches": words_counts["post_sort"],
+         "harness_launches": harness_counts["post_sort"],
+         "sharded_launches": sharded_launches["post_sort"],
+         "mp_launches": mp_launches["post_sort"],
+         "headline_launches": headline_counts["post_sort"],
+         "max_abs_err": max(r["max_abs_err"] for r in pst.values()),
+         "ms": pst[28]["ms"], "plain_ms": pst[28]["plain_ms"],
+         **bound(pst[28]["bytes"], 0),
+         **{f"n30_{key}": pst[30][key]
+            for key in ("ms", "plain_ms", "bound_ms")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

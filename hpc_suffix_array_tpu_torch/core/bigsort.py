@@ -19,9 +19,11 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      ties in descending position order. That costs one copy of each
      column; a fourth key ``n - idx`` (the JAX package's choice for its
      unstable sort) would cost four more radix passes.
-  4. *Post-sort pass (device, plain PyTorch)*: tie flags, the chain delta
-     (``dmax``, ``dmin``, ``delta_ok``) and, with ``want_lcp``, the LCP
-     of adjacent keys from xor and the highest set bit.
+  4. *Post-sort pass (device, ``kernels/post_sort.py::post_sort``: one
+     hand-written kernel in one read of the sorted columns)*: tie flags,
+     the chain delta (``dmax``, ``dmin``, ``delta_ok``) and, with
+     ``want_lcp``, the LCP of adjacent keys from xor and the highest set
+     bit.
   5. *Chain mode / residue / refinement*: globally periodic texts
      resolve their ties by the chain rule after a period check
      (``_period_mismatches``); otherwise the window-tied groups are
@@ -51,8 +53,9 @@ serves the sizes one whole-text sort cannot hold:
   4. *Buckets (device)*: each region is sorted in place by
      ``radix_sort_words`` and finished by ``post_sort``, row 0 against
      the previous bucket's last keys; chain mode reverses a region before
-     its sort. The tie flags go to one bool[n], the LCP into the dead
-     bucket-id slab; after the last bucket the idx slab is the SA.
+     its sort. The pass writes the tie flags straight into one bool[n],
+     the LCP into the dead bucket-id slab; after the last bucket the idx
+     slab is the SA.
   5. *Residue, chain mode, refinement*: as in the direct build, with
      the tie counts per bucket.
 
@@ -88,6 +91,7 @@ import torch
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.kernels.post_sort import post_sort
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     MAX_RADIX, LookBack, onesweep_pass, radix_sort_words, sort_bytes)
 from hpc_suffix_array_tpu_torch.utils.profiling import (
@@ -275,72 +279,6 @@ def key_table(remap: np.ndarray, minpad: bool, device) -> torch.Tensor:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _high_bit(x: torch.Tensor) -> torch.Tensor:
-    """Index of the highest set bit of each nonzero int32 (31 for a
-    negative value), by a 5-step integer binary search. Exact for every
-    int32; float log2 would round 2^k - 1 up."""
-    pos = torch.zeros_like(x)
-    v = x & 0x7FFFFFFF
-    for s in (16, 8, 4, 2, 1):
-        big = v >= (1 << s)
-        v = torch.where(big, v >> s, v)
-        pos += big.to(torch.int32) * s
-    return torch.where(x < 0, 31, pos)
-
-
-def post_sort(words, s_idx: torch.Tensor, n: int, spw: int, bits: int,
-              desc_idx: bool, want_lcp: bool, prev=None):
-    """The pass after the sort: the JAX package's ``_bucket_sort`` (one
-    bucket of the MSD build, or the whole text as one bucket) and
-    ``_direct_sort3`` in one, over 2 or 3 sorted key words of m rows.
-
-    Returns (tie bool[m], stats int64[3] = (tie count, dmax, delta_ok),
-    lcp int32[m] or None). ``tie[j]``: row j's key words equal row
-    j-1's; row 0 never ties (buckets differ in their keys). ``delta`` is
-    the index step along ties (descending in chain mode); ``delta_ok``
-    says every tie has the same step >= 1. The LCP of a non-tied pair is
-    the first differing symbol of the keys, from the highest set bit of
-    their xor. Row 0 compares with ``prev``, the key words of the row
-    before it (the previous live bucket's last row: one-element tensors,
-    one per word), or with a -1 sentinel when None, whose bit 31 puts
-    the symbol below 0, clamped to 0. ``n`` is the text length: in chain
-    mode a tied pair's LCP is ``n - prev_idx`` (consecutive chain
-    members)."""
-    dev = s_idx.device
-    big = 1 << 30
-    m = s_idx.shape[0]
-    tie = torch.zeros(m, dtype=torch.bool, device=dev)
-    if m > 1:
-        eq = words[0][1:] == words[0][:-1]
-        for w in words[1:]:
-            eq &= w[1:] == w[:-1]
-        tie[1:] = eq
-    prev_idx = torch.cat([s_idx[:1], s_idx[:-1]])
-    delta = (prev_idx - s_idx) if desc_idx else (s_idx - prev_idx)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    dmax = torch.where(tie, delta, zero).max()
-    dmin = torch.where(tie, delta, torch.full_like(zero, big)).min()
-    any_tie = tie.any()
-    delta_ok = ~any_tie | ((dmin == dmax) & (dmax >= 1))
-    stats = torch.stack([tie.sum(), dmax.long(), delta_ok.long()])
-    if not want_lcp:
-        return tie, stats, None
-    nw = len(words)
-    lcp = torch.full((m,), nw * spw, dtype=torch.int32, device=dev)
-    # Word by word from the last: the first differing word wins.
-    for w in reversed(range(nw)):
-        head = (torch.full((1,), -1, dtype=torch.int32, device=dev)
-                if prev is None else prev[w])
-        x = torch.cat([head, words[w][:-1]]) ^ words[w]
-        off = (w + 1) * spw - 1 - torch.div(_high_bit(x), bits,
-                                            rounding_mode="floor")
-        lcp = torch.where(x != 0, off.to(torch.int32), lcp)
-    lcp.clamp_(min=0)
-    if desc_idx:
-        lcp = torch.where(tie, n - prev_idx, lcp)
-    return tie, stats, lcp
 
 
 def _extract_ties(tie: torch.Tensor, sa: torch.Tensor):
@@ -1100,7 +1038,8 @@ def _bucket_pass(state: dict, slabs, base: np.ndarray, fills: np.ndarray,
     plan = state["plan"]
     bid_s, k0_s, k1_s, idx_s = slabs
     dev = idx_s.device
-    tie = torch.zeros(plan.n, dtype=torch.bool, device=dev)
+    # Every row lies in a live bucket, whose pass writes its flags.
+    tie = torch.empty(plan.n, dtype=torch.bool, device=dev)
     stats, prev = [], None
     for b in live:
         a, z = int(base[b]), int(base[b] + fills[b])
@@ -1111,12 +1050,10 @@ def _bucket_pass(state: dict, slabs, base: np.ndarray, fills: np.ndarray,
                     col.copy_(col.flip(0))
             radix_sort_words([k0, k1], idx, plan.bits * plan.spw)
         with span("msd: post_sort", dev):
-            t_b, s_b, lcp_b = post_sort([k0, k1], idx, plan.n, plan.spw,
-                                        plan.bits, chain_mode, want_lcp,
-                                        prev)
-            tie[a:z] = t_b
-            if want_lcp:
-                bid_s[a:z] = lcp_b
+            _, s_b, _ = post_sort([k0, k1], idx, plan.n, plan.spw,
+                                  plan.bits, chain_mode, want_lcp, prev,
+                                  tie_out=tie[a:z],
+                                  lcp_out=bid_s[a:z] if want_lcp else None)
             stats.append(s_b)
             prev = (k0[-1:], k1[-1:])
     stats = torch.stack(stats).cpu().numpy()        # the pass's host read

@@ -37,11 +37,12 @@ import numpy as np
 import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
-    _high_bit, _period_mismatches, _suffix_lcp)
+    _period_mismatches, _suffix_lcp)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.device import resolve_device
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 from hpc_suffix_array_tpu_torch.utils.profiling import span
 
 HOST_FINISH_CAP = 65536    # irregular window-miss pairs finished on host

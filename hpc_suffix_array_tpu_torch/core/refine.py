@@ -70,8 +70,9 @@ import numpy as np
 import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
-    _apply_residue, _clamp_lcp, _high_bit, _sync)
+    _apply_residue, _clamp_lcp, _sync)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
 from hpc_suffix_array_tpu_torch.utils.profiling import count, record, span
 

@@ -121,6 +121,11 @@ def _load() -> ctypes.CDLL:
     lib.sa_onesweep_pass.restype = ctypes.c_int
     lib.sa_onesweep_tile_elems.argtypes = []
     lib.sa_onesweep_tile_elems.restype = ctypes.c_int
+    lib.sa_post_sort.argtypes = [ptr] * 10 + [i32, ptr, i64] + [i32] * 5 + [
+        ptr]
+    lib.sa_post_sort.restype = ctypes.c_int
+    lib.sa_post_sort_max_blocks.argtypes = []
+    lib.sa_post_sort_max_blocks.restype = ctypes.c_int
     lib.sa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

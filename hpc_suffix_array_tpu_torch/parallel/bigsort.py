@@ -67,14 +67,14 @@ import numpy as np
 import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
-    RESIDUE_SLOTS, ResidueDepthError, _apply_patch, _high_bit,
-    _period_mismatches, _resolve_residue_host, deep_repeat_class,
-    estimate_repeat_len, key_table, packing_mode, residue_feasible,
-    residue_feasible_sigma)
+    RESIDUE_SLOTS, ResidueDepthError, _apply_patch, _period_mismatches,
+    _resolve_residue_host, deep_repeat_class, estimate_repeat_len, key_table,
+    packing_mode, residue_feasible, residue_feasible_sigma)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     PRESENCE_CHUNK, alphabet_remap, alphabet_remap_dev, as_byte_array,
     remap_from_present)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
+from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 from hpc_suffix_array_tpu_torch.parallel.bitonic import block_bitonic_sort
 from hpc_suffix_array_tpu_torch.parallel.doubling import (
     padded_shards, text_length)

@@ -23,6 +23,7 @@ from hpc_suffix_array_tpu.core.suffix_array import (
     alphabet_remap as jax_alphabet_remap)
 from hpc_suffix_array_tpu_torch.core.oracle import (
     lcp_oracle, suffix_array_oracle)
+from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 
 ALNUM = np.frombuffer(
     b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789",
@@ -266,7 +267,7 @@ def test_text_gates_match_jax(monkeypatch, name):
 def test_high_bit_exact():
     vals = [1, 2, 3, 7, 8, (1 << 30) - 1, 1 << 30, (1 << 31) - 1, -1,
             -(1 << 31), 12345, 1 << 16, (1 << 16) - 1]
-    got = tbs._high_bit(torch.tensor(vals, dtype=torch.int32)).tolist()
+    got = _high_bit(torch.tensor(vals, dtype=torch.int32)).tolist()
     want = [31 if v < 0 else v.bit_length() - 1 for v in vals]
     assert got == want
 

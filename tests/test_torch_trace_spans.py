@@ -168,12 +168,12 @@ ROUTES = {
                {"sa_lcp", "host: alphabet_remap", "host: estimate_repeat_len",
                 "host: route_plan", "direct: sort", "direct: post_sort",
                 "direct: residue_extract"},
-               {"k1_bytes", "sort_bytes"}),
+               {"k1_bytes", "sort_bytes", "post_sort_bytes"}),
     "direct_residue": ({"SA_BIG_THRESHOLD": 1000, "SA_LCP_BIG_MIN": 1000},
                        _planted, "direct",
                        {"direct: sort", "direct: residue_extract",
                         "host: residue"},
-                       {"k1_bytes", "sort_bytes"}),
+                       {"k1_bytes", "sort_bytes", "post_sort_bytes"}),
     "msd": ({"SA_BIG_THRESHOLD": 1000, "SA_LCP_BIG_MIN": 1000,
              "SA_DIRECT_CROSS": 0, "SA_CHUNK_ELEMS": 4096,
              "SA_TARGET_BUCKET": 4096},
@@ -182,13 +182,13 @@ ROUTES = {
              "host: route_plan", "host: sample_edges", "msd", "msd: count",
              "msd: scatter", "msd: buckets", "msd: bucket_sort",
              "msd: post_sort", "msd: residue_extract", "msd: finish"},
-            {"k1_bytes", "sort_bytes"}),
+            {"k1_bytes", "sort_bytes", "post_sort_bytes"}),
     "refine": ({"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
                 "SA_HOST_RESIDUE_MAX": 8},
                lambda: generate_words_text(1 << 16, 5), "direct",
                {"refine", "refine: extract", "refine: rounds",
                 "refine: fetch", "host: residue"},
-               {"k1_bytes", "sort_bytes"}),
+               {"k1_bytes", "sort_bytes", "post_sort_bytes"}),
     "doubling_plcp": ({}, lambda: generate_random_text(40_000, 0),
                       "doubling",
                       {"sa_lcp", "sa", "doubling", "host: alphabet_remap",
@@ -301,7 +301,7 @@ def test_the_older_info_keys_and_launch_counts_keep_their_keys(
 
     assert set(kernels.launch_counts()) == {
         "pack_ranks", "pack_words", "digit_histograms", "onesweep_pass",
-        "block_digit_sort", "place_runs"}
+        "block_digit_sort", "place_runs", "post_sort"}
     assert set(kernels.pass_counts()) == {"passes_run", "passes_skipped"}
     count("launches: pack_words", 3)
     assert kernels.launch_counts()["pack_words"] >= 3

@@ -24,14 +24,10 @@ Counterpart of the direct half of ``hpc_suffix_array_tpu/core/bigsort.py``
      the chain delta (``dmax``, ``dmin``, ``delta_ok``) and, with
      ``want_lcp``, the LCP of adjacent keys from xor and the highest set
      bit.
-  5. *Chain mode / residue / refinement*: globally periodic texts
-     resolve their ties by the chain rule after a period check
-     (``_period_mismatches``); otherwise the window-tied groups are
-     extracted and ordered on the host (``_resolve_residue_host``: from
-     the depth the keys proved, by doubling byte windows) within its
-     cap, and past it by the device tie refinement
-     (``core/refine.py``), whose remainder the same host pass closes
-     from the depth the rounds proved.
+  5. *Tie finish* (``_TieFinish``, shared with the MSD builder): chain
+     mode's ties by the chain rule after a period check; ascending ones
+     by the exact host residue (``core/residue.py``) within its cap, and
+     past it by the device refinement (``core/refine.py``).
 
 The MSD bucket builder (``prepare_big``/``execute_big``, the JAX
 package's carried-keys bucket sort for texts past the direct route)
@@ -56,8 +52,8 @@ serves the sizes one whole-text sort cannot hold:
      its sort. The pass writes the tie flags straight into one bool[n],
      the LCP into the dead bucket-id slab; after the last bucket the idx
      slab is the SA.
-  5. *Residue, chain mode, refinement*: as in the direct build, with
-     the tie counts per bucket.
+  5. *Residue, chain mode, refinement*: the direct build's
+     ``_TieFinish``, with the tie counts per bucket.
 
 The JAX package's count-free layout (fill-fraction capacities, run
 boundaries searched in each sorted chunk, the ``count_free_overflow``
@@ -66,10 +62,6 @@ rerun), its spill-forward W windows and slab gaps and its
 in-place writes, no cheap scans) and are not ported: an exact count is
 one K1 launch and a ``bincount`` per chunk here, and the onesweep pass
 writes every run to its exact place.
-
-``replan_edges`` refreshes a plan's edges between builds: k0-only plans
-are re-sampled on the device (``_sample_k0_device``, a strided view of
-the text), pair-edge plans on the host.
 
 Not ported here: ``codes_from_bytes``/``byte_ranges`` (workarounds for
 XLA's per-element gather cost; the pack kernel reads the remap from
@@ -88,6 +80,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from hpc_suffix_array_tpu_torch.core.refine import refine_ties
+from hpc_suffix_array_tpu_torch.core.residue import (
+    RESIDUE_SLOTS, apply_residue, clamp_lcp, extract_ties, key_depth,
+    period_mismatches, sync)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap, alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
@@ -97,11 +93,6 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
 from hpc_suffix_array_tpu_torch.utils.profiling import (
     count, record, resolve, span)
 
-RESIDUE_SLOTS = 1 << 15          # extracted tie members (the JAX cap)
-RESIDUE_WIN = 64     # bytes of the host residue's first extension step
-# Rows x window bytes one extension step of the host residue may read;
-# the window doubles each step up to this budget.
-RESIDUE_STEP_BYTES = 1 << 24
 # Largest text the direct builder takes (``SA_DIRECT_MAX``) unless the
 # router prefers the MSD builder above ``SA_DIRECT_CROSS``. On an H100
 # 80GB HBM3 (700 W) the direct build beat the MSD build at 2^26, 2^27
@@ -123,7 +114,7 @@ def packing_from_sigma(sigma: int) -> tuple[int, int, bool]:
     either still wins or ties, and ties are resolved with true lengths),
     and it is chosen when it packs more symbols per word (powers of two:
     DNA 15 per word instead of 10). Its key-derived LCP then needs the
-    shorter-suffix clamp (``_clamp_lcp``)."""
+    shorter-suffix clamp (``core/residue.py::clamp_lcp``)."""
     k = max(int(sigma), 1)
     bits_res = max(1, k.bit_length())
     if k >= 2:
@@ -276,275 +267,110 @@ def key_table(remap: np.ndarray, minpad: bool, device) -> torch.Tensor:
     return torch.as_tensor(table.astype(np.int32)).to(device)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+# --- the tie finish of both builders ----------------------------------------
+
+class _TieFinish:
+    """The tie finish of one carried-keys build, direct or MSD: ``judge``
+    gives the verdict and extracts the host residue, ``close`` orders the
+    ties and clamps a minpad LCP. ``text``: the text on the device;
+    ``host_text``: its bytes; ``remap``, ``spw``, ``nw``, ``minpad``: the
+    key packing; ``meta``: the plan's dict."""
+
+    def __init__(self, text, host_text, remap, spw: int, nw: int,
+                 minpad: bool, meta: dict):
+        self.text, self.host_text, self.remap = text, host_text, remap
+        self.spw, self.nw, self.minpad, self.meta = spw, nw, minpad, meta
+        self.periods: list[int] = []    # chain deltas verified as periods
+        # The flags for refine_ties, held here so that the builder drops
+        # its own reference and they are freed before the clamp.
+        self.tie = None
+        self.patches: list = []         # or apply_residue's groups
+
+    def judge(self, tie, sa, stats, starts, chain_mode: bool,
+              force_chain_mode: bool | None):
+        """Verdict on the ties of ``sa``, from one [ties, d, delta_ok]
+        row of ``post_sort`` stats per live bucket, whose slots start at
+        ``starts`` (ascending, from 0; the direct build is one bucket).
+
+        Chain mode verifies each tied bucket's delta as a global period;
+        a failure reruns ascending (``chain_to_ascending``), or raises
+        NotImplementedError where chain mode was forced. An ascending
+        build tied over a quarter of a chain-plausible text reruns in
+        chain mode (``ascending_to_chain``). Ascending ties go to the host
+        residue while each bucket's members fit ``RESIDUE_SLOTS`` and all
+        flags ``SA_HOST_RESIDUE_MAX`` (members <= 2 * flags + groups, so
+        the flags predict an overflow before any extraction), else to the
+        device refinement. Returns (rerun kind, forced chain mode) where
+        the build must run again, else None."""
+        n, meta = sa.shape[0], self.meta
+        if chain_mode:
+            verified: set[int] = set()
+            for a, (k, d, dok) in zip(starts, stats):
+                if not k:
+                    continue
+                if not dok:
+                    why = "residual ties are not uniform arithmetic chains"
+                elif (d and d not in verified
+                      and (mm := period_mismatches(self.text, d, n))):
+                    why = (f"chain delta {d} is not a global period "
+                           f"({mm} mismatches)")
+                else:
+                    verified.add(d)
+                    continue
+                if force_chain_mode is None:
+                    return "chain_to_ascending", False
+                raise NotImplementedError(f"bucket at slot {int(a)}: {why}")
+            self.periods = sorted(verified - {0})
+            return None
+        ties = [row[0] for row in stats]
+        total = sum(ties)
+        if (total > n // 4 and chain_plausible(meta.get("est_repeat", 0), n)
+                and "chain_to_ascending" not in meta.get("rerun", [])):
+            return "ascending_to_chain", True
+        if not total:
+            return None
+        host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
+        if max(ties) * 2 > RESIDUE_SLOTS or total > host_cap:
+            self.tie = tie
+            return None
+        slots, heads = extract_ties(tie)
+        bounds = torch.as_tensor(np.r_[starts, n].astype(np.int64))
+        cuts = torch.searchsorted(slots, bounds.to(slots.device)).tolist()
+        if max(np.diff(cuts)) > RESIDUE_SLOTS:
+            self.tie = tie
+            return None
+        idxs = sa[slots].cpu().numpy()
+        slots, heads = slots.cpu().numpy(), heads.cpu().numpy()
+        depth = key_depth(self.nw, self.spw, self.minpad)
+        self.patches = [(slots[a:z], idxs[a:z], heads[a:z], depth)
+                        for a, z in zip(cuts, cuts[1:]) if z > a]
+        return None
+
+    def close(self, sa, lcp, want_lcp: bool):
+        """Orders the ties ``judge`` left, in place where it can, then
+        clamps a minpad LCP. Returns (sa, lcp, n_patched), n_patched None
+        where neither the refinement nor the host residue ran."""
+        n, n_patched = sa.shape[0], None
+        tie, self.tie = self.tie, None
+        if tie is not None:
+            sa, lcp = refine_ties(
+                sa, tie, lcp, self.text, remap=self.remap, spw_main=self.spw,
+                nw=self.nw, minpad=self.minpad, host_text=self.host_text,
+                want_lcp=want_lcp, meta=self.meta)
+            n_patched = self.meta["refine_host_members"]
+        del tie
+        if self.patches:
+            sa, lcp, n_patched = apply_residue(
+                sa, lcp, self.host_text, self.patches, n, want_lcp)
+        if want_lcp and self.minpad:
+            lcp = clamp_lcp(sa, lcp, n)     # after every patch
+        return sa, lcp, n_patched
 
 
-def _extract_ties(tie: torch.Tensor, sa: torch.Tensor):
-    """(slots int64[P], idx int32[P], head bool[P]) of every tie-group
-    member, slots ascending; ``head`` marks each group's first member. A
-    group contributes all its members: the flag marks the later element
-    of each tied pair, heads join via their successor."""
-    member = tie.clone()
-    member[:-1] |= tie[1:]
-    slots = torch.nonzero(member).view(-1)
-    return slots, sa[slots], ~tie[slots]
-
-
-def key_depth(nw: int, spw: int, minpad: bool) -> int:
-    """Symbols through which equal carried keys prove two suffixes equal:
-    ``nw * spw`` under reserved-0 packing, 0 under minpad (a suffix that
-    ends inside the window pads with the minimum symbol)."""
-    return 0 if minpad else nw * spw
-
-
-def _apply_patch(sa: torch.Tensor, slots: torch.Tensor,
-                 vals: torch.Tensor) -> torch.Tensor:
-    """Write ``vals`` into ``sa`` at ``slots``, in place, dropping pad
-    slots (-1). They are never clamped to slot 0: with a real patch
-    there too, two writes to one index have no defined order (the
-    ``_apply_patch`` fault the JAX package fixed)."""
-    keep = slots >= 0
-    sa[slots[keep]] = vals[keep].to(sa.dtype)
-    return sa
-
-
-def _clamp_lcp(sa: torch.Tensor, lcp: torch.Tensor, n: int) -> torch.Tensor:
-    """Final shorter-suffix clamp: lcp[j] <= n - max(sa[j-1], sa[j]).
-
-    Under minpad packing a suffix ending inside the window continues as
-    min-symbol pads, so the key-derived value can overshoot; the clamp
-    runs over the final (post-residue) SA. Row 0 pairs with itself."""
-    prev = torch.cat([sa[:1], sa[:-1]])
-    return torch.minimum(lcp, n - torch.maximum(prev, sa))
-
-
-def _period_mismatches(text: torch.Tensor, d: int, n: int) -> int:
-    """#positions t in [0, n-d) with text[t] != text[t+d]."""
-    if d >= n:
-        return 0
-    return int((text[:n - d] != text[d:n]).sum())
-
-
-# --- host residue (numpy) ---------------------------------------------------
-
-def _suffix_less(arr: np.ndarray, a: int, b: int, n: int,
-                 step: int = 4096) -> bool:
-    """Exact suffix comparison by bounded windows (host)."""
-    off = 0
-    while True:
-        la, lb = n - a - off, n - b - off
-        L = min(la, lb, step)
-        if L <= 0:
-            return la < lb          # equal through the shorter's end
-        wa = arr[a + off:a + off + L]
-        wb = arr[b + off:b + off + L]
-        neq = np.flatnonzero(wa != wb)
-        if len(neq):
-            t = int(neq[0])
-            return bool(wa[t] < wb[t])
-        if L < step:
-            return la < lb
-        off += L
-
-
-def _suffix_lcp(arr: np.ndarray, a: int, b: int, n: int,
-                step: int = 4096) -> int:
-    """Exact LCP of suffixes a and b by bounded windows (host)."""
-    off = 0
-    while True:
-        L = min(n - a - off, n - b - off, step)
-        if L <= 0:
-            return n - max(a, b)        # one is a prefix of the other
-        neq = np.flatnonzero(arr[a + off:a + off + L]
-                             != arr[b + off:b + off + L])
-        if len(neq):
-            return off + int(neq[0])
-        if L < step:
-            return n - max(a, b)
-        off += L
-
-
-class ResidueDepthError(Exception):
-    """A residue tie is undecided within a bounded-window text view.
-
-    Raised only for views that cannot read the whole text (the
-    multi-process ``parallel/bigsort.py::_GatheredView``, whose
-    ``DEEP_WIN`` bounds the depth the closer may read); callers fall
-    back to the doubling builder, which resolves ties of any depth."""
-
-
-class _ArrView:
-    """Whole-text accessor for residue resolution.
-
-    The view contract (shared with ``parallel/bigsort.py::
-    _GatheredView``): fetch(starts, K) -> uint8[len(starts), K], the K
-    bytes from each start, 0 past the end of the text (the closer knows
-    each row's length and orders a shorter suffix that is a prefix
-    first). A view may bound the depth it serves with ``DEEP_WIN``; this
-    one reads the whole text."""
-
-    def __init__(self, arr: np.ndarray, n: int):
-        self.arr, self.n = arr, n
-
-    def fetch(self, starts: np.ndarray, K: int) -> np.ndarray:
-        starts = np.asarray(starts, np.int64)
-        out = np.zeros((len(starts), K), np.uint8)
-        inner = starts <= self.n - K
-        if inner.any():
-            out[inner] = np.lib.stride_tricks.sliding_window_view(
-                self.arr[:self.n], K)[starts[inner]]
-        # Fewer than K distinct starts reach past the end.
-        for i in np.flatnonzero(~inner):
-            tail = self.arr[starts[i]:self.n]
-            out[i, :len(tail)] = tail
-        return out
-
-
-def _resolve_residue_host(arr, slots: np.ndarray, idxs: np.ndarray, n: int,
-                          want_lcp: bool = False, heads=None,
-                          depth: int = 0):
-    """Exact order for the tied elements (host comparison).
-
-    Groups are the segments that ``heads`` (bool, aligned to ``slots``)
-    starts, each tied through its first ``depth`` symbols; with
-    ``heads=None`` they are runs of consecutive slots, read from depth 0
-    (touching runs merge there, which is harmless at depth 0). Order
-    within each group = full suffix order. Returns (ascending slots, idx
-    aligned to them, lcp-patch slots, lcp-patch values). The lcp patches
-    cover every group-internal adjacent pair; the lcp at a group's head
-    is invariant under the reorder and kept (the key-derived value,
-    exact under reserved-0 packing, or under minpad after the final
-    ``_clamp_lcp``, which must run after this patch; or the value the
-    refinement round that split the groups recorded).
-
-    Vectorized, by extension steps over the still-tied rows only: each
-    reads the W bytes from ``idx + off`` (``off`` from ``depth``, W from
-    ``RESIDUE_WIN`` doubling while rows x W stays within
-    ``RESIDUE_STEP_BYTES``), sorts the rows by (group, window, bytes
-    left) with one argsort of big-endian byte records, splits groups
-    where the windows differ and records ``off + first differing byte``
-    at each new boundary. Past-the-end bytes read 0 and the bytes-left
-    key orders a shorter suffix that is a prefix first, so the order and
-    the LCPs are exact at any depth in about log2(deepest tie) steps; no
-    Python loop runs over pairs.
-
-    ``arr`` is the host text (uint8[n]) or a view with the ``_ArrView``
-    contract: the multi-process build passes one backed by window
-    gathers, so no process needs the whole text; a view's ``DEEP_WIN``
-    bounds the depth read, past which ResidueDepthError is raised.
-    Counts ``residue_members`` and ``residue_steps``."""
-    view = arr if hasattr(arr, "fetch") else _ArrView(arr, n)
-    order = np.argsort(slots, kind="stable")
-    slots, out = slots[order], idxs[order].copy()
-    P = len(slots)
-    if P == 0:
-        return slots, out, np.zeros(0, np.int64), np.zeros(0, np.int32)
-    if heads is None:
-        head, depth = np.r_[True, np.diff(slots) != 1], 0
-    else:
-        head = np.asarray(heads, bool)[order]
-        head[0] = True
-    count("residue_members", P)
-    lcp = np.full(P, -1, np.int64)
-    seg = np.cumsum(head) - 1
-    rows = np.flatnonzero(_tied(head))
-    seg = seg[rows]
-    limit = getattr(view, "DEEP_WIN", None)
-    off, W, steps = int(depth), RESIDUE_WIN, 0
-    while len(rows):
-        if limit is not None:
-            if off >= limit:
-                raise ResidueDepthError(
-                    f"suffixes {int(out[rows[0]])} and {int(out[rows[1]])} "
-                    f"tie past {limit} bytes")
-            W = min(W, limit - off)
-        # One record per row: segment, window (0 past the end, padded
-        # to whole words) and bytes left, all big-endian, so one sort
-        # of the raw records (numpy compares void bytes as unsigned,
-        # first to last) orders by (segment, window, bytes left).
-        Wp = -(-W // 8) * 8
-        starts = out[rows].astype(np.int64) + off
-        left = np.clip(n - starts, 0, W)
-        rec = np.zeros((len(rows), Wp + 16), np.uint8)
-        rec[:, :8] = _be_bytes(seg)
-        rec[:, 8:8 + W] = view.fetch(starts, W)
-        rec[:, 8 + Wp:] = _be_bytes(left)
-        o = np.argsort(rec.view(np.dtype((np.void, Wp + 16))).ravel())
-        out[rows] = out[rows][o]
-        rec, seg, left = rec[o], seg[o], left[o]
-        words = rec.view(np.uint64)
-        diff = (words[1:] != words[:-1]).any(axis=1)
-        if want_lcp:
-            # A new boundary inside an old segment gets its exact LCP.
-            j = np.flatnonzero(diff & (seg[1:] == seg[:-1]))
-            neq = rec[j + 1, 8:8 + W] != rec[j, 8:8 + W]
-            first = np.where(neq.any(axis=1), np.argmax(neq, axis=1), W)
-            lcp[rows[j + 1]] = off + np.minimum(
-                first, np.minimum(left[j], left[j + 1]))
-        new_head = np.r_[True, diff]
-        keep = _tied(new_head)
-        rows, seg = rows[keep], (np.cumsum(new_head) - 1)[keep]
-        off += W
-        fit = RESIDUE_STEP_BYTES // max(len(rows), 1)
-        W = max(RESIDUE_WIN, min(2 * W, 1 << (fit.bit_length() - 1)))
-        steps += 1
-    count("residue_steps", steps)
-    if not want_lcp:
-        return slots, out, np.zeros(0, np.int64), np.zeros(0, np.int32)
-    internal = np.flatnonzero(~head)
-    return (slots, out, slots[internal].astype(np.int64),
-            lcp[internal].astype(np.int32))
-
-
-def _tied(head: np.ndarray) -> np.ndarray:
-    """bool mask of the rows whose segment (started by ``head``) holds
-    two or more rows."""
-    return ~head | np.r_[~head[1:], False]
-
-
-def _be_bytes(x: np.ndarray) -> np.ndarray:
-    """uint8[len(x), 8]: each value as a big-endian 64-bit word."""
-    return x.astype(">u8").view(np.uint8).reshape(-1, 8)
-
-
-@span("host: residue")
-def _apply_residue(sa, lcp, arr, patches, n: int, want_lcp: bool):
-    """Resolve host residue groups and patch them into sa (and lcp).
-
-    ``patches``: list of (slots int64[], idxs int32[], heads bool[],
-    depth) per extraction (``_resolve_residue_host``'s arguments).
-    Returns (sa, lcp, n_patched)."""
-    all_slots, all_vals = [], []
-    lcp_slots, lcp_vals = [], []
-    for slots, idxs, heads, depth in patches:
-        if not len(slots):
-            continue
-        s_sorted, fixed, ls, lv = _resolve_residue_host(
-            arr, slots, idxs, n, want_lcp=want_lcp, heads=heads, depth=depth)
-        all_slots.append(s_sorted.astype(np.int64))
-        all_vals.append(fixed)
-        lcp_slots.append(ls)
-        lcp_vals.append(lv)
-
-    def _patch(target, slot_parts, val_parts):
-        slots = np.concatenate(slot_parts)
-        if not len(slots):
-            return target
-        dev = target.device
-        return _apply_patch(
-            target, torch.as_tensor(slots, dtype=torch.int64).to(dev),
-            torch.as_tensor(np.concatenate(val_parts).astype(np.int32)
-                            ).to(dev))
-
-    n_patched = 0
-    if all_slots:
-        sa = _patch(sa, all_slots, all_vals)
-        n_patched = int(sum(len(s) for s in all_slots))
-    if want_lcp and lcp_slots:
-        lcp = _patch(lcp, lcp_slots, lcp_vals)
-    return sa, lcp, n_patched
+# The ``info`` keys of both builders (the MSD adds ``MSD_INFO_KEYS``).
+INFO_KEYS = ("rerun", "chain_mode", "n_patched", "periods",
+             "refine_members", "refine_rounds", "refine_pieces",
+             "refine_host_members", "refine_phase_s")
 
 
 # --- the builder ------------------------------------------------------------
@@ -603,20 +429,27 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
     """One sort of the whole text's carried keys; returns the SA (and the
     LCP with ``want_lcp``), int32[n] on the state's device.
 
-    Chain mode (globally periodic texts, or forced) verifies a uniform
-    tie delta that is a global period; a misprediction reruns ascending
-    (``meta["rerun"]``: ``chain_to_ascending``), and an ascending run
-    that ties over a quarter of a chain-plausible text reruns in chain
-    mode (``ascending_to_chain``). Ascending ties go to the host residue
-    within its cap; past it, or past the extraction cap, the device
-    refinement (``core/refine.py``) orders them. Raises
-    NotImplementedError where forced chain mode does not hold, and
-    ``RefineOverflow`` (one) where refinement exceeds a cap."""
+    Chain mode (globally periodic texts, or forced) and the ties finish
+    as ``_TieFinish.judge`` says; a rerun is recorded in
+    ``meta["rerun"]``. Raises NotImplementedError where forced chain mode
+    does not hold, and ``RefineOverflow`` (one) where refinement exceeds
+    a cap."""
+    out, redo = _execute_direct(state, force_chain_mode, want_lcp)
+    if redo is not None:
+        state["meta"].setdefault("rerun", []).append(redo[0])
+        return execute_direct(state, force_chain_mode=redo[1],
+                              want_lcp=want_lcp)
+    return out
+
+
+def _execute_direct(state: dict, force_chain_mode: bool | None,
+                    want_lcp: bool):
+    """``execute_direct``'s one attempt: (output, None), or (None, (rerun
+    kind, forced chain mode)) where the build must run again."""
     n, spw, bits = state["n"], state["spw"], state["bits"]
     meta = state["meta"]
-    chain_mode = force_chain_mode
-    if chain_mode is None:
-        chain_mode = chain_plausible(meta.get("est_repeat", 0), n)
+    chain_mode = (chain_plausible(meta.get("est_repeat", 0), n)
+                  if force_chain_mode is None else force_chain_mode)
 
     with span("direct: sort"):
         words, s_idx = _sorted_keys(state, chain_mode)
@@ -624,72 +457,22 @@ def execute_direct(state: dict, *, force_chain_mode: bool | None = None,
         tie, stats, lcp = post_sort(words, s_idx, n, spw, bits, chain_mode,
                                     want_lcp)
     del words
+    fin = _TieFinish(state["text_dev"], state["host_text"], state["remap"],
+                     spw, state["nw"], state["minpad"], meta)
     with span("direct: residue_extract"):
-        ties, d, dok = stats.tolist()
+        rows = [stats.tolist()]         # the one host read
         resolve()
-        redo = None
-        if chain_mode:
-            if ties and not dok:
-                if force_chain_mode is not None:
-                    raise NotImplementedError(
-                        "residual ties are not uniform arithmetic chains")
-                redo = "chain_to_ascending", False
-            elif ties and d:
-                mm = _period_mismatches(state["text_dev"], d, n)
-                if mm and force_chain_mode is not None:
-                    raise NotImplementedError(
-                        f"chain delta {d} is not a global period "
-                        f"({mm} mismatches)")
-                if mm:
-                    redo = "chain_to_ascending", False
-                else:
-                    meta["periods"] = [d]
-        elif (ties > n // 4
-              and chain_plausible(meta.get("est_repeat", 0), n)
-              and "chain_to_ascending" not in meta.get("rerun", [])):
-            redo = "ascending_to_chain", True
-
-        patches = []
-        refine = False
-        # The JAX package's gate: the direct build is one whole-text
-        # bucket, so the member cap applies to the flag count (members <=
-        # 2*flags + groups); past it, or past the extraction cap, refine
-        # on the device.
-        host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
-        if redo is None and ties and not chain_mode:
-            refine = ties * 2 > RESIDUE_SLOTS or ties > host_cap
-            if not refine:
-                slots, idxs, heads = _extract_ties(tie, s_idx)
-                refine = slots.shape[0] > RESIDUE_SLOTS
-                if not refine:
-                    patches.append((slots.cpu().numpy(), idxs.cpu().numpy(),
-                                    heads.cpu().numpy(),
-                                    key_depth(state["nw"], spw,
-                                              state["minpad"])))
+        redo = fin.judge(tie, s_idx, rows, [0], chain_mode, force_chain_mode)
+        del tie
     if redo is not None:
-        del s_idx, tie, lcp
-        meta.setdefault("rerun", []).append(redo[0])
-        return execute_direct(state, force_chain_mode=redo[1],
-                              want_lcp=want_lcp)
-    sa = s_idx
-    if refine:
-        from hpc_suffix_array_tpu_torch.core.refine import refine_ties
-
-        sa, lcp = refine_ties(
-            sa, tie, lcp, state["text_dev"], remap=state["remap"],
-            spw_main=spw, nw=state["nw"], minpad=state["minpad"],
-            host_text=state["host_text"], want_lcp=want_lcp, meta=meta)
-        meta["n_patched"] = meta["refine_host_members"]
-    del tie
-    if patches:
-        sa, lcp, n_patched = _apply_residue(
-            sa, lcp, state["host_text"], patches, n, want_lcp)
+        return None, redo
+    sa, lcp, n_patched = fin.close(s_idx, lcp, want_lcp)
+    if n_patched is not None:           # as the JAX package sets it
         meta["n_patched"] = n_patched
-    if want_lcp and state["minpad"]:
-        # After the residue and refinement patches (see _clamp_lcp).
-        lcp = _clamp_lcp(sa, lcp, n)
+    if fin.periods:
+        meta["periods"] = fin.periods
     meta["chain_mode"] = chain_mode
-    return (sa, lcp) if want_lcp else sa
+    return ((sa, lcp) if want_lcp else sa), None
 
 
 def build_suffix_array_direct(text, *, device, info: dict | None = None,
@@ -697,20 +480,15 @@ def build_suffix_array_direct(text, *, device, info: dict | None = None,
                               want_lcp: bool = False, **kw):
     """One-call direct build (``prepare_direct`` + ``execute_direct``).
 
-    ``info``: optional dict that receives the build's ``rerun``,
-    ``chain_mode``, ``n_patched``, ``periods`` and, where refinement
-    ran, ``refine_members``, ``refine_rounds``, ``refine_pieces``,
-    ``refine_host_members`` (as in the JAX package) and
-    ``refine_phase_s``, plus ``n_words``."""
+    ``info``: optional dict that receives the build's ``INFO_KEYS`` (the
+    refinement's where it ran; as in the JAX package, plus
+    ``refine_phase_s``) and ``n_words``."""
     state = prepare_direct(text, device=device, **kw)
     out = execute_direct(state, force_chain_mode=force_chain_mode,
                          want_lcp=want_lcp)
     if info is not None:
         info.update({k: v for k, v in state["meta"].items()
-                     if k in ("rerun", "chain_mode", "n_patched",
-                              "periods", "refine_members",
-                              "refine_rounds", "refine_pieces",
-                              "refine_host_members", "refine_phase_s")})
+                     if k in INFO_KEYS})
         info["n_words"] = state["nw"]
     return out
 
@@ -1066,6 +844,7 @@ MSD_PHASES = {"count": "msd: count", "scatter": "msd: scatter",
               "bucket_sorts": "msd: buckets",
               "residue_extract": "msd: residue_extract",
               "finish": "msd: finish"}
+MSD_INFO_KEYS = ("n_buckets_run", "phase_host_s", "phase_device_ms")
 
 
 def execute_big(state: dict, *, max_bucket_elems: int | None = None,
@@ -1074,17 +853,12 @@ def execute_big(state: dict, *, max_bucket_elems: int | None = None,
     """Count, scatter and bucket passes; returns the SA (and the LCP with
     ``want_lcp``), int32[n] on the state's device.
 
-    Chain mode (chosen from the repeat estimate, or forced) checks every
-    tied bucket's delta and its global period; a misprediction reruns
-    ascending (``meta["rerun"]``: ``chain_to_ascending``), and an
-    ascending run that ties over a quarter of a chain-plausible text
-    reruns in chain mode (``ascending_to_chain``). Ascending ties go to
-    the host residue while every bucket's members fit ``RESIDUE_SLOTS``
-    and all flags fit ``SA_HOST_RESIDUE_MAX``; past that the device
-    refinement (``core/refine.py``) orders them. Raises
-    NotImplementedError on bucket skew (a bucket over
-    ``max_bucket_elems``, default ``MAX_PASS_ELEMS``), where forced chain
-    mode does not hold, and ``RefineOverflow`` past a refinement cap.
+    Chain mode (chosen from the repeat estimate, or forced) and the ties
+    finish per bucket as ``_TieFinish.judge`` says; a rerun is recorded
+    in ``meta["rerun"]``. Raises NotImplementedError on bucket skew (a
+    bucket over ``max_bucket_elems``, default ``MAX_PASS_ELEMS``), where
+    forced chain mode does not hold, and ``RefineOverflow`` past a
+    refinement cap.
 
     ``meta`` (``state["plan"].meta``) receives ``n_buckets_run``,
     ``chain_mode``, ``periods``, ``n_patched``, ``phase_host_s`` (host
@@ -1122,9 +896,8 @@ def _execute_big(state: dict, max_bucket_elems: int | None,
     n, nb = plan.n, plan.n_buckets
     t = state["text_dev"]
     dev = t.device
-    chain_mode = force_chain_mode
-    if chain_mode is None:
-        chain_mode = chain_plausible(meta.get("est_repeat", 0), n)
+    chain_mode = (chain_plausible(meta.get("est_repeat", 0), n)
+                  if force_chain_mode is None else force_chain_mode)
 
     with span("msd: count"):
         edges = _plan_edges(plan, dev)
@@ -1148,7 +921,7 @@ def _execute_big(state: dict, max_bucket_elems: int | None,
         dest = base[None, :] + np.concatenate(
             [np.zeros((1, nb), np.int64), np.cumsum(counts, axis=0)[:-1]])
         slabs = _scatter(state, edges, counts, dest)
-        _sync(dev)
+        sync(dev)
 
     with span("msd: buckets"):
         live = [b for b in range(nb) if fills[b]]
@@ -1157,78 +930,21 @@ def _execute_big(state: dict, max_bucket_elems: int | None,
         sa = slabs[3]
         lcp = slabs[0] if want_lcp else None
         del slabs                       # the key slabs are dead
-    tie_counts = stats[:, 0]
-
+    fin = _TieFinish(t, state["host_text"], plan.remap, plan.spw, 2,
+                     plan.minpad, meta)
     with span("msd: residue_extract"):
-        verified: set[int] = set()
-        if chain_mode:
-            for b, (ties, d, dok) in zip(live, stats.tolist()):
-                if not ties:
-                    continue
-                if not dok:
-                    if force_chain_mode is None:
-                        return None, ("chain_to_ascending", False)
-                    raise NotImplementedError(
-                        f"bucket {b}: residual ties are not uniform "
-                        "arithmetic chains")
-                if d and d not in verified:
-                    mm = _period_mismatches(t, d, n)
-                    if mm:
-                        if force_chain_mode is None:
-                            return None, ("chain_to_ascending", False)
-                        raise NotImplementedError(
-                            f"bucket {b}: chain delta {d} is not a global "
-                            f"period ({mm} mismatches)")
-                    verified.add(d)
-        elif (int(tie_counts.sum()) > n // 4
-              and chain_plausible(meta.get("est_repeat", 0), n)
-              and "chain_to_ascending" not in meta.get("rerun", [])):
-            return None, ("ascending_to_chain", True)
-
-        # The host residue's bound is per bucket (RESIDUE_SLOTS members
-        # each; members <= 2 * flags + groups, so the flags predict an
-        # overflow before any extraction); the global cap bounds the host
-        # lexsort.
-        patches = []
-        refine = False
-        host_cap = int(os.environ.get("SA_HOST_RESIDUE_MAX", 1 << 20))
-        if not chain_mode and tie_counts.sum():
-            refine = (int(tie_counts.max()) * 2 > RESIDUE_SLOTS
-                      or int(tie_counts.sum()) > host_cap)
-            if not refine:
-                slots, idxs, heads = _extract_ties(tie, sa)
-                bounds = torch.as_tensor(
-                    np.r_[base[live], n].astype(np.int64)).to(dev)
-                cuts = torch.searchsorted(slots, bounds).tolist()
-                refine = max(np.diff(cuts)) > RESIDUE_SLOTS
-                if not refine:
-                    slots, idxs = slots.cpu().numpy(), idxs.cpu().numpy()
-                    heads = heads.cpu().numpy()
-                    depth = key_depth(2, plan.spw, plan.minpad)
-                    patches = [(slots[a:z], idxs[a:z], heads[a:z], depth)
-                               for a, z in zip(cuts, cuts[1:]) if z > a]
+        redo = fin.judge(tie, sa, stats.tolist(), base[live], chain_mode,
+                         force_chain_mode)
+        del tie
+    if redo is not None:
+        return None, redo
 
     with span("msd: finish"):
-        n_patched = 0
-        if refine:
-            from hpc_suffix_array_tpu_torch.core.refine import refine_ties
-
-            sa, lcp = refine_ties(
-                sa, tie, lcp, t, remap=plan.remap, spw_main=plan.spw, nw=2,
-                minpad=plan.minpad, host_text=state["host_text"],
-                want_lcp=want_lcp, meta=meta)
-            n_patched = meta["refine_host_members"]
-        del tie
-        if patches:
-            sa, lcp, n_patched = _apply_residue(
-                sa, lcp, state["host_text"], patches, n, want_lcp)
-        if want_lcp and plan.minpad:
-            # After the residue and refinement patches (see _clamp_lcp).
-            lcp = _clamp_lcp(sa, lcp, n)
-        _sync(dev)
+        sa, lcp, n_patched = fin.close(sa, lcp, want_lcp)
+        sync(dev)
 
     meta.update(n_buckets_run=len(live), chain_mode=chain_mode,
-                periods=sorted(verified), n_patched=n_patched)
+                periods=fin.periods, n_patched=n_patched or 0)
     return ((sa, lcp) if want_lcp else sa), None
 
 
@@ -1238,21 +954,13 @@ def build_suffix_array_big(text, *, device, info: dict | None = None,
     """One-call MSD build (``prepare_big`` + ``execute_big``); ``kw`` go
     to ``prepare_big``.
 
-    ``info``: optional dict that receives the plan's ``rerun``,
-    ``chain_mode``, ``n_patched``, ``periods`` and, where refinement
-    ran, ``refine_members``, ``refine_rounds``, ``refine_pieces``,
-    ``refine_host_members`` (the JAX package's keys), plus
-    ``refine_phase_s``, ``n_buckets_run``, ``phase_host_s`` and
-    ``phase_device_ms``."""
+    ``info``: optional dict that receives the plan's ``INFO_KEYS`` (the
+    refinement's where it ran; the JAX package's keys, plus
+    ``refine_phase_s``) and ``MSD_INFO_KEYS``."""
     state = prepare_big(text, device=device, **kw)
     out = execute_big(state, max_bucket_elems=max_bucket_elems,
                       want_lcp=want_lcp)
     if info is not None:
         info.update({k: v for k, v in state["plan"].meta.items()
-                     if k in ("rerun", "chain_mode", "n_patched",
-                              "periods", "refine_members",
-                              "refine_rounds", "refine_pieces",
-                              "refine_host_members", "refine_phase_s",
-                              "n_buckets_run", "phase_host_s",
-                              "phase_device_ms")})
+                     if k in INFO_KEYS + MSD_INFO_KEYS})
     return out

@@ -36,8 +36,8 @@ import math
 import numpy as np
 import torch
 
-from hpc_suffix_array_tpu_torch.core.bigsort import (
-    _period_mismatches, _suffix_lcp)
+from hpc_suffix_array_tpu_torch.core.residue import (
+    period_mismatches, suffix_lcp)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     alphabet_remap_dev, as_byte_array, device_text)
 from hpc_suffix_array_tpu_torch.device import resolve_device
@@ -127,7 +127,7 @@ def _finish_misses(arr: np.ndarray | None, text_dev: torch.Tensor,
     cnt, dmax, dmin = _unresolved_stats(depth, sa, lcp)
     d = dmax if (cnt and dmax == dmin and dmax > 0) else 0
     chained = False
-    if d > 0 and _period_mismatches(text_dev, d, n) == 0:
+    if d > 0 and period_mismatches(text_dev, d, n) == 0:
         lcp, residual = _chain_fix(depth, sa, lcp, n, d)
         if residual == 0:
             if info is not None:
@@ -149,7 +149,7 @@ def _finish_misses(arr: np.ndarray | None, text_dev: torch.Tensor,
     if arr is None:
         arr = text_dev[:n].cpu().numpy()
     for j in unresolved_idx:
-        lcp_np[j] = _suffix_lcp(arr, int(prev_np[j]), int(sa_np[j]), n)
+        lcp_np[j] = suffix_lcp(arr, int(prev_np[j]), int(sa_np[j]), n)
     if info is not None:
         info["lcp_finish"] = "host"
     return torch.from_numpy(lcp_np).to(lcp.device)

@@ -6,10 +6,10 @@ builder (``core/bigsort.py``) orders each suffix by its first
 leave many positions tied at that depth, far past the host residue's
 cap. This module orders them on the device:
 
-  1. *Extract* every tied member (final SA slot, text index, group head)
-     with one ``torch.nonzero``, and cut the members into pieces of about
-     ``SA_REFINE_PIECE`` rows at group heads, so each group lies in
-     exactly one piece.
+  1. *Extract* every tied member (final SA slot and group head, by
+     ``core/residue.py::extract_ties``), and cut the members into pieces
+     of about ``SA_REFINE_PIECE`` rows at group heads, so each group lies
+     in exactly one piece.
   2. *Word rounds*, only where they are needed: gather the next
      ``2*spw`` symbols of each row as a pair of packed words (``pk2``,
      one K1 launch), sort the rows by (segment, word 0, word 1) with the
@@ -35,13 +35,10 @@ cap. This module orders them on the device:
      groups' head slots, with every boundary still inside a group read as
      unknown (``RangeMin``): no byte is compared. ``pk2`` is freed before
      the ranks are built.
-  4. *Close* the small remainder on the host with
-     ``core/bigsort.py::_resolve_residue_host``: the still-tied segments
-     (the heads of ``tied_rows``) and the depth ``d`` the rounds proved
-     them equal through; the closer extends from there by doubling byte
-     windows until every segment is split. It is exact at any depth, so
-     correctness never depends on the round budget; the boundaries
-     between segments keep the LCPs their rounds recorded.
+  4. *Close* the small remainder, the still-tied segments from the
+     depth ``d`` the rounds proved, with the exact host closer
+     (``core/residue.py``), so correctness never depends on the round
+     budget; the boundaries between segments keep their rounds' LCPs.
 
 Refinement packs with reserved-0 codes (past the end is 0, below every
 real code) even when the main build used minpad: a pair whose shorter
@@ -69,8 +66,8 @@ import os
 import numpy as np
 import torch
 
-from hpc_suffix_array_tpu_torch.core.bigsort import (
-    _apply_residue, _clamp_lcp, _sync)
+from hpc_suffix_array_tpu_torch.core.residue import (
+    apply_residue, clamp_lcp, extract_ties, sync)
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
@@ -529,8 +526,7 @@ def refine_ties(sa: torch.Tensor, tie: torch.Tensor,
     Counts ``refine_word_rounds`` (over all pieces),
     ``refine_doubling_rounds`` and ``refine_depth`` (the deepest depth
     the rounds proved). Returns (sa, lcp). Raises RefineOverflow when a
-    cap is exceeded.
-    """
+    cap is exceeded."""
     meta = meta if meta is not None else {}
     with record("refine", own=True) as rec:
         mark = rec.mark()
@@ -565,17 +561,11 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
         lcp = None
 
     with span("refine: extract"):
-        # A flag marks the later element of a tied pair; a group's head
-        # joins through its successor's flag (_extract_ties' rule).
-        member = tie.clone()
-        member[:-1] |= tie[1:]
-        slots = torch.nonzero(member).view(-1)
-        del member
+        slots, heads = extract_ties(tie)
         meta.update(refine_members=slots.shape[0], refine_pieces=0,
                     refine_rounds=0, refine_host_members=0)
         if slots.shape[0] == 0:
             return sa, lcp
-        heads = ~tie[slots]
         if minpad:
             _set_short_apart(sa, lcp, slots, heads, window)
         slots = slots.to(torch.int32)
@@ -587,7 +577,7 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
                 f"(> SA_REFINE_GROUP_MAX={knobs['group_max']}): one tie "
                 "group exceeds the device sort budget")
         meta["refine_pieces"] = len(sizes)
-        _sync(dev)
+        sync(dev)
 
     # Word rounds deepen each piece while its tied rows exceed their
     # share of one piece, and while a round still cuts them fourfold:
@@ -598,7 +588,7 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
     if sizes.max() > host_piece:
         with span("refine: pair_table"):
             pk2 = pair_table(text, remap)
-            _sync(dev)
+            sync(dev)
 
     def deepen(rows, r):
         return rows.tied > host_piece and (
@@ -642,10 +632,10 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
                     if minpad:
                         # The keys' LCPs overshoot where a suffix ends
                         # inside the window; no tied row is that short.
-                        lcp = _clamp_lcp(sa, lcp, n)
+                        lcp = clamp_lcp(sa, lcp, n)
                     lcp[slot[~head].long()] = UNKNOWN
                     rmq = RangeMin(lcp)
-                _sync(dev)
+                sync(dev)
             rows = TiedRows(slot, idx, head, depth, patch=False)
             del slot, idx, head
             doubles = _doubling_rounds(sa, lcp, rows, rank, rmq, cap,
@@ -655,22 +645,20 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
             left = [_settle(sa, lcp, rows)]
 
     with span("refine: fetch"):
-        host_patches = []
-        for slot, idx, head, d in left:
-            if slot.shape[0] > 4 * host_piece:
-                raise RefineOverflow(
-                    f"{slot.shape[0]} members still tied after "
-                    f"{max(words)} word and {doubles} doubling refinement "
-                    "rounds (> 4*SA_REFINE_HOST_PIECE)")
-            if slot.shape[0]:
-                # The segments, each tied through the d symbols the
-                # rounds proved, go to the host closer as they are.
-                host_patches.append((slot.cpu().numpy(),
-                                     idx.cpu().numpy(),
-                                     head.cpu().numpy(), d))
-        sa, lcp, n_host = _apply_residue(sa, lcp, host_text, host_patches,
-                                         n, want_lcp)
-        _sync(dev)
+        tied = max(p[0].shape[0] for p in left)
+        if tied > 4 * host_piece:
+            raise RefineOverflow(
+                f"{tied} members still tied after {max(words)} word and "
+                f"{doubles} doubling refinement rounds "
+                "(> 4*SA_REFINE_HOST_PIECE)")
+        # The segments, each tied through the d symbols the rounds
+        # proved, go to the host closer as they are.
+        host_patches = [(slot.cpu().numpy(), idx.cpu().numpy(),
+                         head.cpu().numpy(), d)
+                        for slot, idx, head, d in left if slot.shape[0]]
+        sa, lcp, n_host = apply_residue(sa, lcp, host_text, host_patches,
+                                        n, want_lcp)
+        sync(dev)
     meta["refine_rounds"] = max(words) + doubles
     meta["refine_host_members"] = n_host
     count("refine_word_rounds", sum(words))

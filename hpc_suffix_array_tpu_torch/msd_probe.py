@@ -252,7 +252,7 @@ def mode_words30() -> None:
 
 
 def mode_n31() -> None:
-    from hpc_suffix_array_tpu_torch.core.bigsort import _suffix_less
+    from hpc_suffix_array_tpu_torch.core.residue import suffix_less
 
     n = (1 << 31) - 1
     text = alnum_text(n)
@@ -264,7 +264,7 @@ def mode_n31() -> None:
     js = rng.integers(1, n, 1 << 16)
     a = sa[torch.from_numpy(js - 1).cuda()].cpu().numpy()
     b = sa[torch.from_numpy(js).cuda()].cpu().numpy()
-    ok = all(_suffix_less(text, int(x), int(y), n) for x, y in zip(a, b))
+    ok = all(suffix_less(text, int(x), int(y), n) for x, y in zip(a, b))
     say("n31", f"build_sa_lcp n=2^31-1 alnum: {s:.3f} s, path "
                f"{info['path']}, buckets {info.get('n_buckets_run')}, "
                f"phases {json.dumps(info.get('phase_host_s'))}, peak "

@@ -30,7 +30,7 @@ text) need ONE distributed sort of the carried key words:
   5. *Chain mode / residue*: a uniform chain delta that is a global
      period finishes periodic text by the chain rule; otherwise each
      shard compacts at most ``RESIDUE_SLOTS`` tie-group members, the host
-     orders them (``core/bigsort.py::_resolve_residue_host``) and the
+     orders them (``core/residue.py::resolve_residue_host``) and the
      patches land per shard (``_group_patches``, pads dropped). The
      JAX package's retry graph is kept: a chain misprediction reruns
      ascending, and an ascending run tied on more than a quarter of the
@@ -67,9 +67,11 @@ import numpy as np
 import torch
 
 from hpc_suffix_array_tpu_torch.core.bigsort import (
-    RESIDUE_SLOTS, ResidueDepthError, _apply_patch, _period_mismatches,
-    _resolve_residue_host, deep_repeat_class, estimate_repeat_len, key_table,
-    packing_mode, residue_feasible, residue_feasible_sigma)
+    deep_repeat_class, estimate_repeat_len, key_table, packing_mode,
+    residue_feasible, residue_feasible_sigma)
+from hpc_suffix_array_tpu_torch.core.residue import (
+    RESIDUE_SLOTS, ResidueDepthError, apply_patch, period_mismatches,
+    resolve_residue_host)
 from hpc_suffix_array_tpu_torch.core.suffix_array import (
     PRESENCE_CHUNK, alphabet_remap, alphabet_remap_dev, as_byte_array,
     remap_from_present)
@@ -271,16 +273,16 @@ def _group_patches(slots_g: np.ndarray, vals: np.ndarray, P: int, m: int,
 def _patch(col: list[torch.Tensor], ps: np.ndarray, pv: np.ndarray,
            R: int) -> None:
     """Each local shard writes its own R (local slot, value) rows, pads
-    dropped (``core/bigsort.py::_apply_patch``), in place."""
+    dropped (``core/residue.py::apply_patch``), in place."""
     for me in local_ids(col):
         c = col[me]
-        _apply_patch(c, torch.as_tensor(ps[me * R:(me + 1) * R]).to(c.device),
-                     torch.as_tensor(pv[me * R:(me + 1) * R]).to(c.device))
+        apply_patch(c, torch.as_tensor(ps[me * R:(me + 1) * R]).to(c.device),
+                    torch.as_tensor(pv[me * R:(me + 1) * R]).to(c.device))
 
 
 def _clamp_lcp_sharded(sa: list[torch.Tensor], lcp: list[torch.Tensor],
                        n: int) -> list[torch.Tensor]:
-    """``core/bigsort.py::_clamp_lcp`` on sharded columns: lcp[j] <= n -
+    """``core/residue.py::clamp_lcp`` on sharded columns: lcp[j] <= n -
     max(sa[j-1], sa[j]). Row 0 meets shard 0's zero packet, which loses
     the max to sa[0] as the whole-array form's self-pairing does; pad
     rows (sa = n) clamp to 0, which they already hold. Runs after the
@@ -336,10 +338,10 @@ class _HostText:
     def period_holds(self, d: int) -> bool:
         if self._text_t is None:
             self._text_t = unshard(self.texts)[:self.n]
-        return _period_mismatches(self._text_t, d, self.n) == 0
+        return period_mismatches(self._text_t, d, self.n) == 0
 
     def view(self):
-        return self.arr       # _resolve_residue_host wraps it in _ArrView
+        return self.arr       # resolve_residue_host wraps it in _ArrView
 
 
 def _present(texts: list[torch.Tensor], n: int) -> list[torch.Tensor]:
@@ -412,7 +414,7 @@ def _window(texts: list[torch.Tensor], q: np.ndarray, off: np.ndarray,
 class _GatheredView:
     """Bounded-window text view for residue resolution (multi-process).
 
-    Serves the ``_ArrView`` contract (``core/bigsort.py``) from window
+    Serves the ``_ArrView`` contract (``core/residue.py``) from window
     gathers: each ``fetch`` is one gather of the closer's extension
     step. ``DEEP_WIN`` bounds the depth the closer reads: a tie deeper
     than that raises ResidueDepthError, which the caller turns into
@@ -636,7 +638,7 @@ def _attempt(tops, bits, spw, minpad, nw, chain, force_chain_mode, want_lcp,
         if info is not None:
             info.update(chain_mode=bool(chain), n_words=nw)
         sa, lcp = s_idx, lcp_d
-        if want_lcp and minpad:     # after the residue patch (_clamp_lcp)
+        if want_lcp and minpad:     # after the residue patch (clamp_lcp)
             lcp = _clamp_lcp_sharded(sa, lcp, n)
         if tops.slice_output:
             sa = unshard(sa)[:n]
@@ -670,7 +672,7 @@ def _attempt(tops, bits, spw, minpad, nw, chain, force_chain_mode, want_lcp,
             "residue cap - use the doubling builder")
     if tie_cnt:
         slots, res_idx = _residue(members, s_idx, R)
-        s_sorted, fixed, ls, lv = _resolve_residue_host(
+        s_sorted, fixed, ls, lv = resolve_residue_host(
             tops.view(), tops.fetch(slots), tops.fetch(res_idx), n,
             want_lcp=want_lcp)
         ok = s_sorted < n          # pads never join groups, but guard

@@ -169,8 +169,8 @@ def build_lcp_array_sharded(text, sa, mesh: Mesh | None = None,
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev0)
     if lcp_big_min() < n < (1 << 31) - 1:
-        from hpc_suffix_array_tpu_torch.core.bigsort import (
-            RESIDUE_SLOTS, residue_feasible)
+        from hpc_suffix_array_tpu_torch.core.bigsort import residue_feasible
+        from hpc_suffix_array_tpu_torch.core.residue import RESIDUE_SLOTS
         from hpc_suffix_array_tpu_torch.parallel.bigsort import (
             build_suffix_array_sharded_big)
 

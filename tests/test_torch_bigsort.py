@@ -18,6 +18,7 @@ import hpc_suffix_array_tpu as jsa
 import hpc_suffix_array_tpu.core.bigsort as jbs
 import hpc_suffix_array_tpu_torch as tsa
 import hpc_suffix_array_tpu_torch.core.bigsort as tbs
+import hpc_suffix_array_tpu_torch.core.residue as tres
 from hpc_suffix_array_tpu.core import lcp as jlcp
 from hpc_suffix_array_tpu.core.suffix_array import (
     alphabet_remap as jax_alphabet_remap)
@@ -175,6 +176,67 @@ def test_direct_auto_picks_third_word(monkeypatch):
     assert np.array_equal(sa.numpy(), suffix_array_oracle(text))
 
 
+# --- the tie finish both builders share -----------------------------------
+
+# name: (text, environment, forced chain mode, what the case exercises)
+TIE_FINISH = {
+    "no_ties": (CORPORA["alnum"], {}, None,
+                lambda m: not m.get("n_patched")
+                and "refine_members" not in m),
+    "host_residue": (_deep_ties, {}, None,
+                     lambda m: m["n_patched"] > 0
+                     and "refine_members" not in m),
+    "host_residue_at_slot_zero": (_slot_zero, {}, None,
+                                  lambda m: m["n_patched"] > 0),
+    "device_refinement": (_deep_ties, {"SA_HOST_RESIDUE_MAX": "8"}, None,
+                          lambda m: m["refine_members"] > 0),
+    "chain_verified": (CORPORA["periodic"], {}, None,
+                       lambda m: m["chain_mode"]
+                       and m["periods"] == [1000]),
+    "chain_to_ascending": (_uniform_delta, {"SA_CHAIN_EST_MIN": "100"}, None,
+                           lambda m: m["rerun"] == ["chain_to_ascending"]
+                           and not m["chain_mode"]),
+    "ascending_to_chain": (CORPORA["periodic"], {}, False,
+                           lambda m: m["rerun"] == ["ascending_to_chain"]
+                           and m["chain_mode"]),
+    "forced_chain_refused": (_deep_ties, {}, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_FINISH))
+def test_direct_and_msd_finish_ties_alike(monkeypatch, case):
+    """The direct builder and the MSD builder (small chunks and buckets,
+    so the ties fall in many buckets) take the same branch of their
+    shared tie finish on the same text: SA and LCP equal SA-IS and
+    Kasai in both, and ``rerun``, ``chain_mode`` and ``periods`` agree
+    (the direct build sets ``periods`` only where it verified one)."""
+    make, env, force, exercised = TIE_FINISH[case]
+    monkeypatch.setenv("SA_CHUNK_ELEMS", "4096")
+    monkeypatch.setenv("SA_TARGET_BUCKET", "4096")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    text = make()
+    direct = tbs.prepare_direct(text, device="cpu")
+    msd = tbs.prepare_big(text, device="cpu")
+    runs = ((tbs.execute_direct, direct, direct["meta"]),
+            (tbs.execute_big, msd, msd["plan"].meta))
+    if exercised is None:
+        for execute, state, _ in runs:
+            with pytest.raises(NotImplementedError, match="bucket at slot"):
+                execute(state, force_chain_mode=force, want_lcp=True)
+        return
+    want = suffix_array_oracle(text)
+    for execute, state, meta in runs:
+        sa, lcp = execute(state, force_chain_mode=force, want_lcp=True)
+        assert np.array_equal(sa.numpy(), want)
+        assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))
+        assert exercised(meta), meta
+    (_, _, dm), (_, _, mm) = runs
+    for key, empty in (("rerun", []), ("chain_mode", None),
+                       ("periods", [])):
+        assert dm.get(key, empty) == mm.get(key, empty), key
+
+
 # --- K1 at a word offset against _direct_keys ---------------------------
 
 @pytest.mark.parametrize("alphabet,n", [
@@ -278,7 +340,7 @@ def test_apply_patch_drops_pad_slots():
     sa = torch.arange(10, dtype=torch.int32)
     slots = torch.tensor([0, 1, -1, -1, 5], dtype=torch.int64)
     vals = torch.tensor([1, 0, 7, 8, 9], dtype=torch.int32)
-    out = tbs._apply_patch(sa, slots, vals)
+    out = tres.apply_patch(sa, slots, vals)
     assert out.tolist() == [1, 0, 2, 3, 4, 9, 6, 7, 8, 9]
 
 

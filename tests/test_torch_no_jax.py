@@ -3,10 +3,13 @@
 (bench, ``bench_cuda.py``, utils, the text reports) runs without pandas
 and matplotlib."""
 
+import ast
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hpc_suffix_array_tpu_torch"
@@ -179,3 +182,48 @@ def test_no_source_imports_jax():
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def _imported_modules(path: pathlib.Path):
+    """(module, names) of every import in ``path``, at any depth."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names = [a.name for a in node.names]
+            yield node.module, names
+            for name in names:
+                yield f"{node.module}.{name}", []
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, []
+
+
+@pytest.mark.parametrize("module", ["refine", "residue"])
+def test_tie_finish_modules_import_no_builder(module):
+    """``core/refine.py`` and ``core/residue.py`` lie below the
+    carried-keys builders: neither imports ``core.bigsort``."""
+    path = PKG / "core" / f"{module}.py"
+    got = [m for m, _ in _imported_modules(path)
+           if m == "hpc_suffix_array_tpu_torch.core.bigsort"]
+    assert got == []
+
+
+def test_no_module_takes_a_residue_name_from_the_builder():
+    """The residue's names are imported from ``core.residue`` only, and
+    ``core/bigsort.py`` imports ``core.refine`` at module level."""
+    residue = ast.parse((PKG / "core" / "residue.py").read_text())
+    moved = {n.name for n in residue.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    moved |= {t.id for n in residue.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)}
+    offenders = []
+    for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for m, names in _imported_modules(p):
+            if m == "hpc_suffix_array_tpu_torch.core.bigsort":
+                offenders += [(p.name, x) for x in names if x in moved]
+    assert offenders == []
+    bigsort = ast.parse((PKG / "core" / "bigsort.py").read_text())
+    nested = [n for f in ast.walk(bigsort)
+              if isinstance(f, ast.FunctionDef) for n in ast.walk(f)
+              if isinstance(n, ast.ImportFrom)
+              and n.module == "hpc_suffix_array_tpu_torch.core.refine"]
+    assert nested == []

@@ -24,6 +24,7 @@ import hpc_suffix_array_tpu.core.refine as jrf
 import hpc_suffix_array_tpu_torch as tsa
 import hpc_suffix_array_tpu_torch.core.bigsort as tbs
 import hpc_suffix_array_tpu_torch.core.refine as trf
+import hpc_suffix_array_tpu_torch.core.residue as tres
 import hpc_suffix_array_tpu_torch.core.suffix_array as tsuf
 from hpc_suffix_array_tpu.datasets.generate import generate_words_text
 from hpc_suffix_array_tpu_torch.cli import run as cli_run
@@ -151,7 +152,7 @@ def test_host_residue_from_the_depth_the_rounds_proved(monkeypatch, name,
     LCP equal the JAX package's."""
     _force_refine(monkeypatch, SA_REFINE_HOST_PIECE=host_piece)
     depths = []
-    real = tbs._resolve_residue_host
+    real = tres.resolve_residue_host
 
     def spy(arr, slots, idxs, n, *args, heads=None, depth=0, **kw):
         assert heads is not None and heads[0]
@@ -164,7 +165,7 @@ def test_host_residue_from_the_depth_the_rounds_proved(monkeypatch, name,
         return real(arr, slots, idxs, n, *args, heads=heads, depth=depth,
                     **kw)
 
-    monkeypatch.setattr(tbs, "_resolve_residue_host", spy)
+    monkeypatch.setattr(tres, "resolve_residue_host", spy)
     if name == "deep_block":
         text = _deep_block()
     else:                               # a 560-byte phrase at three sites
@@ -176,7 +177,7 @@ def test_host_residue_from_the_depth_the_rounds_proved(monkeypatch, name,
     remap = tsuf.alphabet_remap(text)[0]
     _, spw_main, minpad = tbs.packing_mode(remap)
     assert depths and len(set(depths)) == 1
-    assert depths[0] > tbs.key_depth(info["n_words"], spw_main, minpad)
+    assert depths[0] > tres.key_depth(info["n_words"], spw_main, minpad)
 
 
 def test_multi_piece(monkeypatch):
@@ -503,7 +504,7 @@ def _refine_only(text: np.ndarray, info: dict):
         spw_main=spw, nw=state["nw"], minpad=state["minpad"],
         host_text=state["host_text"], want_lcp=True, meta=info)
     if state["minpad"]:
-        lcp = tbs._clamp_lcp(sa, lcp, n)
+        lcp = tres.clamp_lcp(sa, lcp, n)
     return sa.numpy(), lcp.numpy()
 
 

@@ -1,9 +1,9 @@
-"""The exact host residue closer (``core/bigsort.py::_resolve_residue_host``).
+"""The exact host residue closer (``core/residue.py::resolve_residue_host``).
 
 Every case is made with numpy from a seed. The closer's order and every
 LCP patch are held, exactly, against an oracle that sorts each group
-pair by pair with ``_suffix_less`` and takes each adjacent pair's LCP
-with ``_suffix_lcp``. Groups are either given by head flags and
+pair by pair with ``suffix_less`` and takes each adjacent pair's LCP
+with ``suffix_lcp``. Groups are either given by head flags and
 proven tied through a depth (what the refinement hands over) or, with
 ``heads=None``, runs of consecutive slots read from depth 0.
 """
@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import pytest
 
-import hpc_suffix_array_tpu_torch.core.bigsort as tbs
+import hpc_suffix_array_tpu_torch.core.residue as tres
 from hpc_suffix_array_tpu_torch.utils.profiling import record
 
 DNA = np.frombuffer(b"ACGT", np.uint8)
@@ -34,10 +34,10 @@ def _oracle(arr, slots, idxs, heads):
     ls, lv = [], []
     for a, b in zip(starts[:-1], starts[1:]):
         out[a:b] = sorted(out[a:b].tolist(), key=functools.cmp_to_key(
-            lambda x, y: -1 if tbs._suffix_less(arr, x, y, n) else 1))
+            lambda x, y: -1 if tres.suffix_less(arr, x, y, n) else 1))
         for j in range(a + 1, b):
             ls.append(slots[j])
-            lv.append(tbs._suffix_lcp(arr, int(out[j - 1]), int(out[j]), n))
+            lv.append(tres.suffix_lcp(arr, int(out[j - 1]), int(out[j]), n))
     return (slots, out, np.array(ls, np.int64), np.array(lv, np.int32))
 
 
@@ -65,7 +65,7 @@ def _groups(arr, members, d, rng, gap=False):
 
 
 def _check(arr, slots, idxs, heads, depth, want_lcp=True, view=None):
-    got = tbs._resolve_residue_host(
+    got = tres.resolve_residue_host(
         arr if view is None else view, slots, idxs, len(arr),
         want_lcp=want_lcp, heads=heads, depth=depth)
     want = _oracle(arr, slots, idxs, _runs(slots) if heads is None
@@ -167,7 +167,7 @@ def test_touching_segments_stay_apart(want_lcp):
     # the boundary's LCP is the refinement's, not patched here.
     assert set(got[1][4:]) == {5000, 13000, 21000}
     assert 104 not in got[2]
-    merged = tbs._resolve_residue_host(arr, slots, idxs, len(arr))
+    merged = tres.resolve_residue_host(arr, slots, idxs, len(arr))
     assert not np.array_equal(merged[1], got[1])
 
 
@@ -238,7 +238,7 @@ class _BoundedView:
     DEEP_WIN = 4096
 
     def __init__(self, arr):
-        self.inner = tbs._ArrView(arr, len(arr))
+        self.inner = tres._ArrView(arr, len(arr))
         self.calls = []
 
     def fetch(self, starts, K):
@@ -260,8 +260,8 @@ def test_bounded_view_resolves_within_its_depth():
 def test_bounded_view_raises_past_its_depth():
     arr, members = _deep_copy()
     slots, idxs, heads = _groups(arr, members, 0, np.random.default_rng(9))
-    with pytest.raises(tbs.ResidueDepthError, match="tie past 4096 bytes"):
-        tbs._resolve_residue_host(_BoundedView(arr), slots, idxs, len(arr),
+    with pytest.raises(tres.ResidueDepthError, match="tie past 4096 bytes"):
+        tres.resolve_residue_host(_BoundedView(arr), slots, idxs, len(arr),
                                   want_lcp=True)
 
 
@@ -277,28 +277,29 @@ def test_reads_start_at_the_proven_depth():
     firsts = view.calls[0][0]
     assert np.array_equal(np.sort(firsts), np.sort(idxs + 300))
     widths = [K for _, K in view.calls]
-    assert widths[0] == tbs.RESIDUE_WIN
+    assert widths[0] == tres.RESIDUE_WIN
     assert all(b == 2 * a for a, b in zip(widths, widths[1:]))
 
 
 def test_arr_view_fetch_at_and_past_the_end():
     arr = np.arange(1, 101, dtype=np.uint8)
-    win = tbs._ArrView(arr, 100).fetch(np.array([0, 36, 90, 99, 100]), 64)
+    win = tres._ArrView(arr, 100).fetch(np.array([0, 36, 90, 99, 100]), 64)
     assert win.dtype == np.uint8 and win.shape == (5, 64)
     assert np.array_equal(win[0], arr[:64])
     assert np.array_equal(win[1], arr[36:100])
     assert np.array_equal(win[2], np.r_[arr[90:], np.zeros(54, np.uint8)])
     assert win[3, 0] == 100 and not win[3, 1:].any()
     assert not win[4].any()
-    assert not tbs._ArrView(arr[:10], 10).fetch(np.array([3]), 64)[0, 7:].any()
+    short = tres._ArrView(arr[:10], 10).fetch(np.array([3]), 64)
+    assert not short[0, 7:].any()
 
 
 def test_empty_and_singleton_groups():
     arr = DNA[np.random.default_rng(11).integers(0, 4, 500)].copy()
-    got = tbs._resolve_residue_host(arr, np.zeros(0, np.int64),
+    got = tres.resolve_residue_host(arr, np.zeros(0, np.int64),
                                     np.zeros(0, np.int32), 500, True)
     assert all(len(x) == 0 for x in got)
     slots = np.array([5, 9, 20], np.int64)
     idxs = np.array([7, 3, 100], np.int32)
-    got = tbs._resolve_residue_host(arr, slots, idxs, 500, True)
+    got = tres.resolve_residue_host(arr, slots, idxs, 500, True)
     assert np.array_equal(got[1], idxs) and len(got[2]) == 0

@@ -228,6 +228,9 @@ from hpc_suffix_array_tpu_torch.kernels.pack import (
     pack_ranks, pack_ranks_reference, pack_words, pack_words_reference)
 from hpc_suffix_array_tpu_torch.kernels.post_sort import (
     post_sort, post_sort_bytes, post_sort_reference)
+from hpc_suffix_array_tpu_torch.kernels.refine_round import (
+    round_gather, round_gather_bytes, round_gather_reference, round_split,
+    round_split_bytes, round_split_reference)
 from hpc_suffix_array_tpu_torch.kernels.radix import (
     LookBack, block_digit_sort, block_digit_sort_reference, digit_histograms,
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
@@ -709,6 +712,56 @@ def time_post_sort(log2: int) -> dict:
             "ms": median_ms(lambda _: post_sort(*args)),
             "plain_ms": median_ms(lambda _: post_sort_reference(*args)),
             **bound(n_bytes, 0)}
+
+
+def time_refine_round(log2: int) -> dict:
+    """The word round's gather and split beside their plain versions on
+    2^log2 rows in english's packing (bits 8, spw 3): the gather from a
+    pk2 of as many positions at a permutation of them; the split over
+    ordinals sorted across m / 8 segments and words of 0/1 symbols, so
+    rows tie and split in either word. Exact, each timed (CUDA events,
+    median of 5; the split's in-place columns restored outside the timed
+    window), with the bytes a call moves and the bound at 3.35 TB/s."""
+    m, bits, spw = 1 << log2, 8, 3
+    d = 2 * spw
+    g = torch.Generator(device="cuda").manual_seed(SEED + log2)
+    pk2 = torch.randint(0, 1 << 24, (m + 1, 2), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pk2[m] = 0
+    idx = torch.randperm(m, generator=g, device="cuda").to(torch.int32)
+    gather_err = exact(round_gather(idx, pk2, d),
+                       round_gather_reference(idx, pk2, d),
+                       f"round_gather n=2^{log2}")
+    out = {"gather_ms": median_ms(lambda _: round_gather(idx, pk2, d)),
+           "gather_plain_ms": median_ms(
+               lambda _: round_gather_reference(idx, pk2, d)),
+           "gather_bytes": round_gather_bytes(m),
+           "gather_bound_ms": bound(round_gather_bytes(m), 0)["bound_ms"]}
+    del pk2, idx
+    seg = torch.randint(0, m >> 3, (m,), generator=g, device="cuda",
+                        dtype=torch.int32).sort().values
+    w0, w1 = (torch.randint(0, 1 << 30, (m,), generator=g, device="cuda",
+                            dtype=torch.int32) & 0x010101 for _ in range(2))
+    patch = torch.full((m,), -1, dtype=torch.int32, device="cuda")
+    split_err = exact(
+        list(round_split(seg.clone(), w0, w1, patch.clone(), d, spw, bits)),
+        list(round_split_reference(seg.clone(), w0, w1, patch.clone(), d,
+                                   spw, bits)),
+        f"round_split n=2^{log2}")
+
+    def fresh():
+        return seg.clone(), patch.clone()
+
+    out.update(
+        split_ms=median_ms(lambda a: round_split(a[0], w0, w1, a[1], d, spw,
+                                                 bits), setup=fresh),
+        split_plain_ms=median_ms(
+            lambda a: round_split_reference(a[0], w0, w1, a[1], d, spw,
+                                            bits), setup=fresh),
+        split_bytes=round_split_bytes(m),
+        split_bound_ms=bound(round_split_bytes(m), 0)["bound_ms"],
+        max_abs_err=max(gather_err, split_err))
+    return out
 
 
 def check_corpus(name: str, text: np.ndarray):
@@ -1969,6 +2022,16 @@ def main() -> int:
               f"{r['bytes'] / 1e9:.2f} GB, bound {r['bound_ms']:.3f} ms at "
               f"3.35 TB/s ({card})")
         torch.cuda.empty_cache()
+    rrd = {}
+    for log2 in (27, 28):
+        rrd[log2] = r = time_refine_round(log2)
+        phase(f"[3] refine round n=2^{log2} (english packing): exact; "
+              f"gather {r['gather_ms']:.3f} ms, plain "
+              f"{r['gather_plain_ms']:.3f} ms, bound "
+              f"{r['gather_bound_ms']:.3f} ms; split {r['split_ms']:.3f} "
+              f"ms, plain {r['split_plain_ms']:.3f} ms, bound "
+              f"{r['split_bound_ms']:.3f} ms ({card})")
+        torch.cuda.empty_cache()
     sort_err = max([srt["max_abs_err"]]
                    + [r["max_abs_err"] for r in rsrt.values()]
                    + [r["max_abs_err"] for r in ksrt.values()])
@@ -2189,6 +2252,21 @@ def main() -> int:
          **bound(pst[28]["bytes"], 0),
          **{f"n30_{key}": pst[30][key]
             for key in ("ms", "plain_ms", "bound_ms")}},
+        *({"name": f"refine_{part}", "route": "cuda",
+           "source": "hpc_suffix_array_tpu_torch/csrc/refine_round.cu",
+           "replaces": None,
+           "launches": words_counts[f"refine_{part}"],
+           "harness_launches": harness_counts[f"refine_{part}"],
+           "sharded_launches": sharded_launches[f"refine_{part}"],
+           "mp_launches": mp_launches[f"refine_{part}"],
+           "headline_launches": headline_counts[f"refine_{part}"],
+           "max_abs_err": max(r["max_abs_err"] for r in rrd.values()),
+           "ms": rrd[28][f"{part}_ms"],
+           "plain_ms": rrd[28][f"{part}_plain_ms"],
+           **bound(rrd[28][f"{part}_bytes"], 0),
+           **{f"n27_{key}": rrd[27][f"{part}_{key}"]
+              for key in ("ms", "plain_ms", "bound_ms")}}
+          for part in ("gather", "split")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

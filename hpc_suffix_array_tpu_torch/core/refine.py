@@ -15,12 +15,13 @@ cap. This module orders them on the device:
      one K1 launch), sort the rows by (segment, word 0, word 1) with the
      onesweep radix sort, split segments where the words differ, and
      record the exact LCP of each new boundary from the highest set bit
-     of the words' xor. Segment ids are ordinals, by ``torch.cumsum`` of
-     the head flags. A piece runs one, then more while its tied rows
-     exceed its share of one piece (a build of several pieces) or a
-     round still cuts them fourfold (shallow ties, as in words, end so
-     without the doubling's rank array); then its resolved rows are
-     committed and its tied ones kept.
+     of the words' xor. Segment ids are ordinals of the head flags. The
+     gather and the split are hand-written kernels on the card
+     (``kernels/refine_round.py``). A piece runs one round, then more
+     while its tied rows exceed its share of one piece (a build of
+     several pieces) or a round still cuts them fourfold (shallow ties,
+     as in words, end so without the doubling's rank array); then its
+     resolved rows are committed and its tied ones kept.
   3. *Doubling rounds* (Larsson and Sadakane), where more than
      ``SA_REFINE_HOST_PIECE`` rows are left, over the tied rows of all
      pieces at once, every segment proven equal through ``d`` symbols
@@ -71,6 +72,8 @@ from hpc_suffix_array_tpu_torch.core.residue import (
 from hpc_suffix_array_tpu_torch.kernels.pack import pack_words
 from hpc_suffix_array_tpu_torch.kernels.post_sort import _high_bit
 from hpc_suffix_array_tpu_torch.kernels.radix import radix_sort_words
+from hpc_suffix_array_tpu_torch.kernels.refine_round import (
+    _shift1, round_gather, round_split, segment_ids)
 from hpc_suffix_array_tpu_torch.utils.profiling import count, record, span
 
 # An LCP not known yet: a boundary still inside a tied group, which the
@@ -157,56 +160,25 @@ def piece_bounds(head: torch.Tensor, target: int) -> list[int]:
     return bounds
 
 
-def segment_ids(head: torch.Tensor) -> torch.Tensor:
-    """int32 ordinal of each row's segment (head[0] must be set).
-
-    The JAX package labels a segment by its head's position (a running
-    max); any label that is equal inside a segment and grows from one
-    segment to the next sorts and splits the same. The ordinal is one
-    ``cumsum``: on an H100 ``torch.cummax`` of the head positions took
-    71% of the refinement's device time (PERF.md)."""
-    return torch.cumsum(head, 0, dtype=torch.int32) - 1
-
-
-def _shift1(x: torch.Tensor) -> torch.Tensor:
-    """x moved down one row, -1 in row 0."""
-    return torch.cat([x.new_full((1,), -1), x[:-1]])
-
-
 def refine_round(seg, idx, patch, pk2, d: int, spw: int, bits: int):
     """One deepening round over a piece (rows in position order).
 
-    Sorts the rows by (segment, word 0, word 1) of their windows at
-    depth ``d``, with the onesweep radix sort and the text index as
-    payload; splits segments where the windows differ; records
+    Gathers the words of each row's window at depth ``d``
+    (``round_gather``), sorts the rows by (segment, word 0, word 1) with
+    the onesweep radix sort and the text index as payload, and splits
+    segments where the windows differ (``round_split``), which records
     ``d + first differing symbol`` at each new boundary inside an old
     segment into the positional ``patch``; returns (seg, idx, patch,
     tied pairs). Rows move only inside their segment's position range,
-    so a boundary formed at position p stays at p. ``seg`` and ``idx``
-    are consumed (sorted in place)."""
-    n = pk2.shape[0] - 1
+    so a boundary formed at position p stays at p. ``seg``, ``idx`` and
+    ``patch`` are consumed (sorted or written in place)."""
     rows = seg.shape[0]
-    g = pk2[(idx + d).clamp_(max=n).long()]
-    w0, w1 = g[:, 0].contiguous(), g[:, 1].contiguous()
-    del g
+    w0, w1 = round_gather(idx, pk2, d)
     seg_bits = max(1, (rows - 1).bit_length())
     (s_seg, s0, s1), s_idx = radix_sort_words(
         [seg, w0, w1], idx, [seg_bits, bits * spw, bits * spw])
-    parent_head = s_seg != _shift1(s_seg)
-    x0, x1 = s0 ^ _shift1(s0), s1 ^ _shift1(s1)
-    del s_seg, s0, s1
-    in_w0 = x0 != 0
-    wdiff = in_w0 | (x1 != 0)
-    new_head = parent_head | wdiff
-    # Symbols pack first-highest: the xor's highest set bit names the
-    # first differing symbol (post_sort's LCP arithmetic), in word 0
-    # where it differs, else in word 1.
-    hb = _high_bit(torch.where(in_w0, x0, x1))
-    last = 2 * spw - 1 - spw * in_w0.to(torch.int32)
-    sym = last - torch.div(hb, bits, rounding_mode="floor")
-    patch = torch.where(wdiff & ~parent_head, d + sym, patch)
-    tied = int((~new_head).sum())           # the round's one host read
-    return segment_ids(new_head), s_idx, patch, tied
+    s_seg, patch, tied = round_split(s_seg, s0, s1, patch, d, spw, bits)
+    return s_seg, s_idx, patch, int(tied)     # the round's one host read
 
 
 def tied_rows(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

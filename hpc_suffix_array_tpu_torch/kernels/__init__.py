@@ -18,7 +18,8 @@ from hpc_suffix_array_tpu_torch.utils.profiling import (
     process_counters, reset_counters)
 
 COUNTED = ("pack_ranks", "pack_words", "digit_histograms", "onesweep_pass",
-           "block_digit_sort", "place_runs", "post_sort")
+           "block_digit_sort", "place_runs", "post_sort", "refine_gather",
+           "refine_split")
 PASSES = ("passes_run", "passes_skipped")
 
 

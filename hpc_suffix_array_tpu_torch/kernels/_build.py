@@ -126,6 +126,13 @@ def _load() -> ctypes.CDLL:
     lib.sa_post_sort.restype = ctypes.c_int
     lib.sa_post_sort_max_blocks.argtypes = []
     lib.sa_post_sort_max_blocks.restype = ctypes.c_int
+    lib.sa_round_gather.argtypes = [ptr] * 4 + [i64] * 3 + [ptr]
+    lib.sa_round_gather.restype = ctypes.c_int
+    lib.sa_round_split.argtypes = [ptr] * 6 + [i64, ptr, i64] + [i32] * 3 + [
+        ptr]
+    lib.sa_round_split.restype = ctypes.c_int
+    lib.sa_round_tile_rows.argtypes = []
+    lib.sa_round_tile_rows.restype = ctypes.c_int
     lib.sa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

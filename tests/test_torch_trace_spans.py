@@ -188,7 +188,8 @@ ROUTES = {
                lambda: generate_words_text(1 << 16, 5), "direct",
                {"refine", "refine: extract", "refine: rounds",
                 "refine: fetch", "host: residue"},
-               {"k1_bytes", "sort_bytes", "post_sort_bytes"}),
+               {"k1_bytes", "sort_bytes", "post_sort_bytes",
+                "refine_round_bytes"}),
     "doubling_plcp": ({}, lambda: generate_random_text(40_000, 0),
                       "doubling",
                       {"sa_lcp", "sa", "doubling", "host: alphabet_remap",
@@ -301,7 +302,8 @@ def test_the_older_info_keys_and_launch_counts_keep_their_keys(
 
     assert set(kernels.launch_counts()) == {
         "pack_ranks", "pack_words", "digit_histograms", "onesweep_pass",
-        "block_digit_sort", "place_runs", "post_sort"}
+        "block_digit_sort", "place_runs", "post_sort", "refine_gather",
+        "refine_split"}
     assert set(kernels.pass_counts()) == {"passes_run", "passes_skipped"}
     count("launches: pack_words", 3)
     assert kernels.launch_counts()["pack_words"] >= 3

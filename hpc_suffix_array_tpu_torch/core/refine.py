@@ -385,33 +385,41 @@ class RangeMin:
     go to the level above) and two entries of the table."""
 
     def __init__(self, v: torch.Tensor):
-        self.v = v
-        self.blocks = _block_min(v)
-        self.supers = _block_min(self.blocks)
-        self.table = _sparse_table(self.supers)
+        with span("refine: rmq", v.device):
+            self.v = v
+            self.blocks = _block_min(v)
+            self.supers = _block_min(self.blocks)
+            self.table = _sparse_table(self.supers)
 
     def lower(self, pos: torch.Tensor, val: torch.Tensor) -> None:
         """After ``v[pos] = val`` (int64 positions, values no higher than
         those they replace)."""
-        pos = pos // RMQ_BLOCK
-        self.blocks.scatter_reduce_(0, pos, val, "amin")
-        self.supers.scatter_reduce_(0, pos // RMQ_BLOCK, val, "amin")
-        self.table = _sparse_table(self.supers)
+        with span("refine: rmq", self.v.device):
+            pos = pos // RMQ_BLOCK
+            self.blocks.scatter_reduce_(0, pos, val, "amin")
+            self.supers.scatter_reduce_(0, pos // RMQ_BLOCK, val, "amin")
+            self.table = _sparse_table(self.supers)
 
     def query(self, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
         """int32 minimum of ``v[lo..hi]`` for each pair (int64, lo <=
-        hi), ``RMQ_ROWS`` ranges a launch."""
-        out = torch.empty(lo.shape[0], dtype=torch.int32, device=lo.device)
-        for s in range(0, lo.shape[0], RMQ_ROWS):
-            a, b = lo[s:s + RMQ_ROWS], hi[s:s + RMQ_ROWS]
-            got = _ends_min(self.v, a, b)
-            # Whole blocks strictly inside, then whole super-blocks.
-            a, b = (a + RMQ_BLOCK - 1) // RMQ_BLOCK, (b + 1) // RMQ_BLOCK - 1
-            got = torch.minimum(got, _ends_min(self.blocks, a, b))
-            a, b = (a + RMQ_BLOCK - 1) // RMQ_BLOCK, (b + 1) // RMQ_BLOCK - 1
-            out[s:s + RMQ_ROWS] = torch.minimum(got,
-                                                _table_min(self.table, a, b))
-        return out
+        hi), ``RMQ_ROWS`` ranges a launch. Counts them in
+        ``rmq_ranges``."""
+        count("rmq_ranges", lo.shape[0])
+        with span("refine: rmq", self.v.device):
+            out = torch.empty(lo.shape[0], dtype=torch.int32,
+                              device=lo.device)
+            for s in range(0, lo.shape[0], RMQ_ROWS):
+                a, b = lo[s:s + RMQ_ROWS], hi[s:s + RMQ_ROWS]
+                got = _ends_min(self.v, a, b)
+                # Whole blocks strictly inside, then whole super-blocks.
+                a, b = ((a + RMQ_BLOCK - 1) // RMQ_BLOCK,
+                        (b + 1) // RMQ_BLOCK - 1)
+                got = torch.minimum(got, _ends_min(self.blocks, a, b))
+                a, b = ((a + RMQ_BLOCK - 1) // RMQ_BLOCK,
+                        (b + 1) // RMQ_BLOCK - 1)
+                out[s:s + RMQ_ROWS] = torch.minimum(
+                    got, _table_min(self.table, a, b))
+            return out
 
 
 def doubling_round(seg, idx, slot, rank, lcp, rmq, d: int):
@@ -428,9 +436,11 @@ def doubling_round(seg, idx, slot, rank, lcp, rmq, d: int):
     ``lcp`` and ``rmq``. Only then does every row get its new segment's
     head slot in ``rank``, so each read of the round was at depth ``d``.
     Rows move only inside their segment's slot range. Returns (seg,
-    idx, tied); ``seg`` and ``idx`` are consumed (sorted in place)."""
+    idx, tied); ``seg`` and ``idx`` are consumed (sorted in place).
+    Counts the rows in ``refine_doubling_rows``."""
     n = rank.shape[0] - 1
     rows = seg.shape[0]
+    count("refine_doubling_rows", rows)
     key = rank[(idx.long() + d).clamp_(max=n)] + 1
     seg_bits = max(1, (rows - 1).bit_length())
     (s_seg, s_key), s_idx = radix_sort_words(
@@ -496,9 +506,11 @@ def refine_ties(sa: torch.Tensor, tie: torch.Tensor,
             of the spans of ``REFINE_PHASES``).
 
     Counts ``refine_word_rounds`` (over all pieces),
-    ``refine_doubling_rounds`` and ``refine_depth`` (the deepest depth
-    the rounds proved). Returns (sa, lcp). Raises RefineOverflow when a
-    cap is exceeded."""
+    ``refine_doubling_rounds``, ``refine_depth`` (the deepest depth the
+    rounds proved) and, where the doubling runs,
+    ``refine_doubling_rows`` (the rows its rounds sorted) and
+    ``rmq_ranges`` (the ranges RangeMin answered). Returns (sa, lcp).
+    Raises RefineOverflow when a cap is exceeded."""
     meta = meta if meta is not None else {}
     with record("refine", own=True) as rec:
         mark = rec.mark()
@@ -513,7 +525,10 @@ def refine_ties(sa: torch.Tensor, tie: torch.Tensor,
 
 
 # ``refine_phase_s``' keys and the spans they read. "refine: rounds"
-# holds both kinds of round and, inside it, "refine: ranks".
+# holds both kinds of round and, inside it, "refine: ranks" (the rank
+# array and RangeMin's construction) and "refine: doubling" (the
+# doubling rounds). Every piece of RangeMin's work (its construction,
+# each query and each lower) is the device span "refine: rmq".
 REFINE_PHASES = {"extract": "refine: extract", "pk": "refine: pair_table",
                  "rounds": "refine: rounds", "host_fetch": "refine: fetch"}
 
@@ -610,8 +625,9 @@ def _refine(sa, tie, lcp, text, remap, spw_main: int, nw: int,
                 sync(dev)
             rows = TiedRows(slot, idx, head, depth, patch=False)
             del slot, idx, head
-            doubles = _doubling_rounds(sa, lcp, rows, rank, rmq, cap,
-                                       host_piece)
+            with span("refine: doubling", dev):
+                doubles = _doubling_rounds(sa, lcp, rows, rank, rmq, cap,
+                                           host_piece)
             del rank, rmq
         with span("refine: fetch"):
             left = [_settle(sa, lcp, rows)]

@@ -562,6 +562,38 @@ def test_doubling_matches_the_oracle(monkeypatch, name):
         assert meta["refine_rounds"] <= 16
 
 
+@pytest.mark.parametrize("seed", [2**31 + 23, 3200000023])
+def test_english_copies_on_the_msd_route(monkeypatch, seed):
+    """The ``english-copies`` configuration's own text at 2 MiB (one
+    verbatim copy, its length clamped to a quarter of the text) through
+    ``build_sa_lcp`` on the MSD route, in pieces of 2^19 rows: the word
+    rounds stall on the copy and the doubling takes it. SA and LCP equal
+    SA-IS and Kasai, and the benchmark's plain reference finds nothing
+    wrong with them or with the LRS."""
+    import cellbench.reference as ref
+    from hpc_suffix_array_tpu_torch.core.lrs import (
+        find_longest_repeated_substring)
+
+    for k, v in {"SA_BIG_THRESHOLD": 12_000, "SA_LCP_BIG_MIN": 12_000,
+                 "SA_DIRECT_CROSS": 12_000, "SA_DIRECT_MAX": 12_000,
+                 "SA_REFINE_PIECE": 1 << 19,
+                 "SA_REFINE_HOST_PIECE": 64}.items():
+        monkeypatch.setenv(k, str(v))
+    text = _config_text("english-copies", 1 << 21, seed)
+    info: dict = {}
+    sa, lcp = tsa.build_sa_lcp(text, device="cpu", info=info)
+    want = suffix_array_oracle(text)
+    assert np.array_equal(sa.numpy(), want)
+    assert np.array_equal(lcp.numpy(), lcp_oracle(text, want))
+    lrs = find_longest_repeated_substring(torch.from_numpy(text), sa, lcp,
+                                          device="cpu")
+    assert ref.judge(text, sa, lcp, lrs, torch.device("cpu")) == {
+        "sa_bad": 0, "lcp_bad": 0, "lrs_bad": 0}
+    assert info["path"] == "msd"
+    assert info["refine_pieces"] >= 2
+    assert info["counters"]["refine_doubling_rounds"] >= 10
+
+
 @pytest.mark.parametrize("n", [1, 31, 32, 1000, 1 << 15, 50_003])
 def test_range_min_against_brute_force(n):
     """RangeMin's three levels answer every range like a scan, before

@@ -6,7 +6,9 @@ and no profiler a span does nothing. A ``torch.profiler`` session sees
 each span as a ``user_annotation`` around the ops it covers. The
 builders write the expected span names and counters on every route the
 CPU can force (direct, MSD, refinement with a host residue, doubling +
-PLCP), the older ``info`` keys and ``launch_counts()`` keep their keys,
+PLCP), the doubling rounds and RangeMin have their spans and counters
+where the doubling runs and none where it does not, the older ``info``
+keys and ``launch_counts()`` keep their keys,
 and the byte counters equal their formulas on the plain CPU path.
 """
 
@@ -232,6 +234,19 @@ def _planted_dna(n: int = 1 << 16, seed: int = 12) -> np.ndarray:
     return text
 
 
+def _doubling_text(case: str, monkeypatch) -> np.ndarray:
+    """A planted text and thresholds under which its ties reach the
+    doubling rounds on the direct route: one piece under reserved-0
+    packing, several pieces, or minpad."""
+    env = {"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
+           "SA_HOST_RESIDUE_MAX": 8, "SA_REFINE_HOST_PIECE": 16}
+    if case == "pieces":
+        env["SA_REFINE_PIECE"] = 2048
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+    return _planted_dna() if case == "minpad" else _planted()
+
+
 @pytest.mark.parametrize("case", ["one_piece", "pieces", "minpad"])
 def test_the_refinement_counts_its_rounds_and_depth(case, monkeypatch):
     """Where the doubling runs, its rank array is built in the span
@@ -239,15 +254,9 @@ def test_the_refinement_counts_its_rounds_and_depth(case, monkeypatch):
     word rounds (at least one a piece, before the deep ties stall
     them), the doubling rounds and the depth they proved: one piece
     under reserved-0 packing, several pieces, and minpad."""
-    env = {"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
-           "SA_HOST_RESIDUE_MAX": 8, "SA_REFINE_HOST_PIECE": 16}
-    if case == "pieces":
-        env["SA_REFINE_PIECE"] = 2048
-    for k, v in env.items():
-        monkeypatch.setenv(k, str(v))
     info: dict = {}
-    tsa.build_sa_lcp(_planted_dna() if case == "minpad" else _planted(),
-                     device="cpu", info=info)
+    tsa.build_sa_lcp(_doubling_text(case, monkeypatch), device="cpu",
+                     info=info)
     assert info["path"] == "direct"
     assert (info["refine_pieces"] > 1) == (case == "pieces")
     counters, spans = info["counters"], info["spans_ms"]
@@ -258,6 +267,95 @@ def test_the_refinement_counts_its_rounds_and_depth(case, monkeypatch):
     assert counters["refine_word_rounds"] >= info["refine_pieces"]
     assert counters["refine_doubling_rounds"] >= 1
     assert counters["refine_depth"] >= 2 ** counters["refine_doubling_rounds"]
+
+
+def _spy_doubling(monkeypatch) -> dict:
+    """Counts, apart from the program's counters, the rows each doubling
+    round sorts, the boundaries it splits (its segments after less its
+    segments before) and the calls of RangeMin's construction, query
+    and lower."""
+    seen = {"rows": 0, "splits": 0, "rmq": 0}
+    one_round = trf.doubling_round
+
+    def doubling_round(seg, *args):
+        rows, before = seg.shape[0], int(seg[-1]) + 1
+        out = one_round(seg, *args)
+        seen["rows"] += rows
+        seen["splits"] += int(out[0][-1]) + 1 - before
+        return out
+
+    def calls(method):
+        def wrapped(self, *args):
+            seen["rmq"] += 1
+            return method(self, *args)
+        return wrapped
+
+    monkeypatch.setattr(trf, "doubling_round", doubling_round)
+    for name in ("__init__", "query", "lower"):
+        monkeypatch.setattr(trf.RangeMin, name,
+                            calls(getattr(trf.RangeMin, name)))
+    return seen
+
+
+def _ancestors(spans: list, i: int) -> list[str]:
+    names = []
+    while spans[i][3] >= 0:
+        i = spans[i][3]
+        names.append(spans[i][0])
+    return names
+
+
+@pytest.mark.parametrize("case", ["one_piece", "pieces", "minpad"])
+def test_the_doubling_and_range_min_have_spans_and_counters(case,
+                                                            monkeypatch):
+    """Where the doubling runs, "refine: doubling" covers its rounds
+    once, inside "refine: rounds" and after "refine: ranks"; every call
+    of RangeMin's construction (inside "refine: ranks"), query and lower
+    (inside "refine: doubling") is one "refine: rmq" span; and
+    ``refine_doubling_rows`` and ``rmq_ranges`` equal the rows the
+    rounds sorted and the boundaries they split, counted apart."""
+    text = _doubling_text(case, monkeypatch)
+    seen = _spy_doubling(monkeypatch)
+    info: dict = {}
+    with record("test", info) as rec:
+        tsa.build_sa_lcp(text, device="cpu", info=info)
+    counters, spans = info["counters"], info["spans_ms"]
+    assert info["path"] == "direct"
+    assert counters["refine_doubling_rounds"] >= 1
+    assert counters["refine_doubling_rows"] == seen["rows"] > 0
+    assert counters["rmq_ranges"] == seen["splits"] > 0
+    assert spans["refine: doubling"]["calls"] == 1
+    assert spans["refine: rmq"]["calls"] == seen["rmq"] >= 3
+    names = [s[0] for s in rec.spans]
+    at = names.index("refine: doubling")
+    ranks = names.index("refine: ranks")
+    assert _ancestors(rec.spans, at)[0] == "refine: rounds"
+    assert ranks < at and rec.spans[ranks][2] <= rec.spans[at][1]
+    for i, name in enumerate(names):
+        if name == "refine: rmq":
+            inside = "refine: ranks" if i < at else "refine: doubling"
+            assert inside in _ancestors(rec.spans, i)
+
+
+def test_a_build_without_doubling_has_neither_span_nor_counter(
+        monkeypatch):
+    """Plain English of 64 KiB, refined by word rounds alone."""
+    from cellbench import harness
+
+    for k, v in {"SA_BIG_THRESHOLD": 1 << 14, "SA_LCP_BIG_MIN": 1 << 14,
+                 "SA_HOST_RESIDUE_MAX": 8, "SA_REFINE_HOST_PIECE": 64}.items():
+        monkeypatch.setenv(k, str(v))
+    bench = harness.Bench()
+    params = bench.config("english")["generator_params"]
+    text = bench.module("gen", "english").make(1 << 16, 2**31 + 3, "cpu",
+                                              **params).numpy()
+    info: dict = {}
+    tsa.build_sa_lcp(text, device="cpu", info=info)
+    assert info["refine_members"] > 0 and info["refine_rounds"] >= 1
+    assert info["counters"]["refine_doubling_rounds"] == 0
+    assert not {"refine: doubling", "refine: rmq"} & set(info["spans_ms"])
+    assert not {"refine_doubling_rows", "rmq_ranges"} & set(
+        info["counters"])
 
 
 @pytest.mark.parametrize("route", ["direct_residue", "refine"])

@@ -19,7 +19,10 @@ Drives the port's main paths on the card and checks them:
      first design of the pass, which the sort no longer runs); the onesweep kernels
      digit_histograms and onesweep_pass at rbits 4 and 8, 2^16 and 2^28,
      uniform, skewed and constant keys, and one pass at 2^28 (3 and 4
-     columns) timed beside K2 + glue + K3 and the plain pass; the radix
+     columns, and the refinement's 4-column shape) timed beside its
+     bound and the plain pass (3 and 4 columns also beside K2 + glue +
+     K3), with the status words its look-backs examined per tile and
+     digit; the radix
      sort at 2^28 on the real alnum key words, beside torch.sort, and at
      a refinement round's shape (segment, two window words and the
      positions; 28, 30 and 30 live bits) on 2^28 and 2^22 rows, with
@@ -235,12 +238,12 @@ from hpc_suffix_array_tpu_torch.kernels.radix import (
     LookBack, block_digit_sort, block_digit_sort_reference, digit_histograms,
     digit_histograms_reference, onesweep_pass, onesweep_pass_reference,
     place_runs, place_runs_reference, radix_pass, radix_sort_words,
-    radix_sort_words_reference, run_offsets)
+    radix_sort_words_reference, run_offsets, sort_bytes)
 from hpc_suffix_array_tpu_torch.parallel import (
     build_lcp_array_sharded, build_sa_lcp_sharded, build_suffix_array_sharded,
     is_valid_suffix_array_sharded, make_mesh)
 from hpc_suffix_array_tpu_torch.utils.profiling import (
-    device_busy, device_trace, process_spans, read_trace)
+    device_busy, device_trace, process_spans, read_trace, record)
 from hpc_suffix_array_tpu_torch.viz import generate_statistics_report
 
 T0 = time.perf_counter()
@@ -530,9 +533,86 @@ def plain_starts(key: torch.Tensor, shift: int, rbits: int) -> torch.Tensor:
     return (torch.cumsum(hist, 0) - hist).to(torch.int32)
 
 
-def compare_onesweep(n: int, rbits: int, kind: str) -> dict:
+# The pass shapes phase [3] times at 2^28: (key, iota, other) and a
+# fourth column, by the 8-bit digit at shift 8 of uniform 30-bit keys;
+# and a refinement round's sort, (w0, seg, w1, idx) by w0's top digit
+# (40 values of a heavily tied window word).
+ONESWEEP_SHAPES = ("3 columns", "4 columns", "refinement")
+
+
+def pass_columns(shape: str):
+    """(columns, shift) of a timed pass at 2^28, the key in column 0."""
+    cols = keys_on_card("uniform", FULL_N, 8)
+    if shape == "3 columns":
+        return cols, 8
+    if shape == "4 columns":
+        return cols + [cols[2].flip(0)], 8
+    g = torch.Generator(device="cuda").manual_seed(FULL_N + 1)
+    w0 = (torch.randint(0, 40, (FULL_N,), generator=g, device="cuda",
+                        dtype=torch.int32) << 24) | torch.randint(
+        0, 3, (FULL_N,), generator=g, device="cuda", dtype=torch.int32)
+    seg = cols[0].sort().values >> 2
+    return [w0, seg, cols[2], cols[1]], 24
+
+
+def lookback_reads(cols, shift: int, starts) -> float:
+    """Status words the look-backs of one pass (8-bit digits) examined,
+    per tile and digit: the recorder's counters of a traced record."""
+    info: dict = {}
+    with (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]),
+          record("smoke: onesweep", info)):
+        onesweep_pass(cols, 0, shift, 8, starts,
+                      LookBack(cols[0].shape[0], 1, "cuda"))
+    c = info["counters"]
+    return c["onesweep_lookback_reads"] / (c["onesweep_tiles"] * 256)
+
+
+def time_pass(shape: str) -> dict:
+    """One pass at 2^28, rbits 8: onesweep_pass (its digit starts given,
+    its look-back status zeroed in each call), its bound, the plain pass
+    and the look-back reads per tile and digit. With 3 or 4 columns the
+    K2 + glue + K3 pass runs once first, against the onesweep pass's
+    output, with the launch counts set to 0 just before it, and is
+    timed."""
+    cols, shift = pass_columns(shape)
+    starts = plain_starts(cols[0], shift, 8)
+    out = [torch.empty_like(c) for c in cols]
+
+    def one_pass(lookback):
+        onesweep_pass(cols, 0, shift, 8, starts, lookback, out)
+
+    def fresh_lookback():
+        return LookBack(FULL_N, 1, "cuda")
+
+    one_pass(fresh_lookback())
+    exact(out, onesweep_pass_reference(cols, 0, shift, 8),
+          f"onesweep_pass 2^28, {shape}")
+    r = {"ms": median_ms(one_pass, setup=fresh_lookback),
+         "plain_ms": median_ms(
+             lambda _: onesweep_pass_reference(cols, 0, shift, 8, out)),
+         "reads": lookback_reads(cols, shift, starts),
+         **bound(sort_bytes(FULL_N, len(cols)), 0)}
+    if shape == "refinement":
+        return r
+    work = [c.clone() for c in cols]
+    staging = [torch.empty_like(c) for c in cols]
+    before = launch_counts()
+    radix_pass(work, 0, shift, 8, staging)
+    r["k23_launches"] = {k: launch_counts()[k] - before[k]
+                         for k in ("block_digit_sort", "place_runs")}
+    exact(work, out, f"K2 + glue + K3 pass vs onesweep pass, {shape}")
+    r["k23_ms"] = median_ms(
+        lambda _: radix_pass(work, 0, shift, 8, staging),
+        setup=lambda: [w.copy_(c) for w, c in zip(work, cols)])
+    return r
+
+
+def compare_onesweep(n: int, rbits: int, kind: str,
+                     timed: bool = False) -> dict:
     """digit_histograms (the key and the second key as two 30-bit words)
-    and one onesweep_pass against their plain versions."""
+    and one onesweep_pass against their plain versions; ``timed`` adds
+    ``time_pass`` of each of ONESWEEP_SHAPES under "timed"."""
     cols = keys_on_card(kind, n, n + rbits + 1)
     words = [cols[0], cols[2]]
     what = f"n={n} rbits={rbits} {kind}"
@@ -547,43 +627,14 @@ def compare_onesweep(n: int, rbits: int, kind: str) -> dict:
                           LookBack(n, 1, "cuda")),
             onesweep_pass_reference(cols, 0, shift, rbits),
             f"onesweep_pass shift={shift} " + what))
-    return {"hist_err": err_h, "pass_err": err_p}
-
-
-def time_passes(n_cols: int) -> dict:
-    """One pass at 2^28, rbits 8, shift 8, on ``n_cols`` int32 columns:
-    onesweep_pass (its digit starts given, its look-back status zeroed
-    in each call), the K2 + glue + K3 pass and the plain pass. The K2 +
-    glue + K3 pass runs once first, against the onesweep pass's output,
-    with the launch counts set to 0 just before it."""
-    cols = keys_on_card("uniform", FULL_N, 8)
-    if n_cols == 4:
-        cols.append(cols[2].flip(0))
-    hist = digit_histograms([cols[0]], 16, 8)[1]
-    starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
-    out = [torch.empty_like(c) for c in cols]
-
-    def one_pass(lookback):
-        onesweep_pass(cols, 0, 8, 8, starts, lookback, out)
-
-    def fresh_lookback():
-        return LookBack(FULL_N, 1, "cuda")
-
-    one_pass(fresh_lookback())
-    work = [c.clone() for c in cols]
-    staging = [torch.empty_like(c) for c in cols]
-    before = launch_counts()
-    radix_pass(work, 0, 8, 8, staging)
-    k23_launches = {k: launch_counts()[k] - before[k]
-                    for k in ("block_digit_sort", "place_runs")}
-    exact(work, out, f"K2 + glue + K3 pass vs onesweep pass, {n_cols} cols")
-    return {"ms": median_ms(one_pass, setup=fresh_lookback),
-            "k23_ms": median_ms(
-                lambda _: radix_pass(work, 0, 8, 8, staging),
-                setup=lambda: [w.copy_(c) for w, c in zip(work, cols)]),
-            "plain_ms": median_ms(
-                lambda _: onesweep_pass_reference(cols, 0, 8, 8, out)),
-            "k23_launches": k23_launches}
+    r = {"hist_err": err_h, "pass_err": err_p}
+    del cols, words
+    if timed:
+        r["timed"] = {}
+        for shape in ONESWEEP_SHAPES:
+            torch.cuda.empty_cache()
+            r["timed"][shape] = time_pass(shape)
+    return r
 
 
 def sort_and_count(words, payload, live):
@@ -1968,25 +2019,26 @@ def main() -> int:
           f"kernel {k23['k3_ms']:.3f} ms, plain {k23['k3_plain_ms']:.3f} "
           f"ms ({card})")
     os_err = {"hist": 0, "pass": 0}
+    one = {}
     for n in (1 << 16, FULL_N):
         for rbits in (4, 8):
             for kind_ in ("uniform", "skewed", "constant"):
-                r = compare_onesweep(n, rbits, kind_)
+                r = compare_onesweep(n, rbits, kind_, timed=(
+                    n == FULL_N and rbits == 8 and kind_ == "uniform"))
                 os_err["hist"] = max(os_err["hist"], r["hist_err"])
                 os_err["pass"] = max(os_err["pass"], r["pass_err"])
+                one.update(r.get("timed", {}))
                 torch.cuda.empty_cache()
     phase("[3] digit_histograms + onesweep_pass: exact at rbits 4 and 8, "
           "n 2^16 and 2^28, uniform, skewed and constant keys")
-    one = {}
-    for n_cols in (3, 4):
-        one[n_cols] = time_passes(n_cols)
-        torch.cuda.empty_cache()
-        phase(f"[3] one pass n=2^28 rbits=8, {n_cols} int32 columns: "
-              f"onesweep {one[n_cols]['ms']:.3f} ms, K2 + glue + K3 "
-              f"{one[n_cols]['k23_ms']:.3f} ms, plain "
-              f"{one[n_cols]['plain_ms']:.3f} ms; the K2 + glue + K3 pass "
-              f"== the onesweep pass, launches "
-              f"{json.dumps(one[n_cols]['k23_launches'])} ({card})")
+    for shape, t in one.items():
+        split = (f", K2 + glue + K3 {t['k23_ms']:.3f} ms (== the onesweep "
+                 f"pass, launches {json.dumps(t['k23_launches'])})"
+                 if "k23_ms" in t else "")
+        phase(f"[3] one pass n=2^28 rbits=8, {shape}: onesweep "
+              f"{t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms{split}; look-back reads "
+              f"{t['reads']:.3f} a tile and digit ({card})")
     srt = compare_sort(alnum)
     phase(f"[3] digit_histograms n=2^28 alnum (k0, k1): exact; kernel "
           f"{srt['hist_ms']:.3f} ms, plain {srt['hist_plain_ms']:.3f} ms "
@@ -2213,7 +2265,9 @@ def main() -> int:
          "mp_launches": mp_launches["onesweep_pass"],
          "headline_launches": headline_counts["onesweep_pass"],
          "max_abs_err": max(os_err["pass"], sort_err),
-         "ms": one[3]["ms"], "plain_ms": one[3]["plain_ms"],
+         "ms": one["3 columns"]["ms"],
+         "plain_ms": one["3 columns"]["plain_ms"],
+         "lookback_reads": one["3 columns"]["reads"],
          **bound(2 * 3 * 4 * n + 256 * 4, 8 * n)},
         {"name": "block_digit_sort", "route": "cuda",
          "source": "hpc_suffix_array_tpu_torch/csrc/radix.cu",
@@ -2223,7 +2277,8 @@ def main() -> int:
          "sharded_launches": sharded_launches["block_digit_sort"],
          "mp_launches": mp_launches["block_digit_sort"],
          "headline_launches": headline_counts["block_digit_sort"],
-         "check_launches": one[3]["k23_launches"]["block_digit_sort"],
+         "check_launches": one["3 columns"]["k23_launches"][
+             "block_digit_sort"],
          "max_abs_err": radix_err["k2"],
          "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
          **bound(2 * 3 * 4 * n + tiles * 256 * 4, 8 * n)},
@@ -2235,7 +2290,8 @@ def main() -> int:
          "sharded_launches": sharded_launches["place_runs"],
          "mp_launches": mp_launches["place_runs"],
          "headline_launches": headline_counts["place_runs"],
-         "check_launches": one[3]["k23_launches"]["place_runs"],
+         "check_launches": one["3 columns"]["k23_launches"][
+             "place_runs"],
          "max_abs_err": radix_err["k3"],
          "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
          **bound(2 * 3 * 4 * n + 2 * tiles * 256 * 4, 4 * n)},

@@ -117,9 +117,9 @@ def _load() -> ctypes.CDLL:
         i32, i64, i32, ints, ints, ints, i32, ptr, ptr]
     lib.sa_digit_histograms.restype = ctypes.c_int
     lib.sa_onesweep_pass.argtypes = cols + [ptr, ptr, ptr, ctypes.c_uint,
-                                            ptr]
+                                            ptr, ptr]
     lib.sa_onesweep_pass.restype = ctypes.c_int
-    lib.sa_onesweep_tile_elems.argtypes = []
+    lib.sa_onesweep_tile_elems.argtypes = [i32]
     lib.sa_onesweep_tile_elems.restype = ctypes.c_int
     lib.sa_post_sort.argtypes = [ptr] * 10 + [i32, ptr, i64] + [i32] * 5 + [
         ptr]

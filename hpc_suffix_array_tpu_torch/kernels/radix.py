@@ -10,9 +10,11 @@
   starts and skips every pass whose digit is the same for all elements
   (a stable partition by a constant digit is the identity);
 - ``onesweep_pass`` runs each remaining pass in one launch: every tile
+  stages its columns in shared memory, publishes its digit counts,
   ranks its elements by digit, finds its global offsets by decoupled
   look-back over earlier tiles, and writes every column once to its
-  final place.
+  final place. The tile's size follows the column count
+  (``tile_elems``).
 
 The onesweep pass computes what ``experiments/radix_write.py::
 radix_pass_dma`` computes: Pallas ``block_digit_sort`` and
@@ -41,10 +43,13 @@ import ctypes
 import torch
 
 from hpc_suffix_array_tpu_torch.kernels import _build
-from hpc_suffix_array_tpu_torch.utils.profiling import count
+from hpc_suffix_array_tpu_torch.utils.profiling import count, device_counter
 
 BLOCK = 4096          # elements per K2/K3 block (csrc/radix.cu kBlock)
-TILE = 4096           # elements per onesweep tile (csrc/onesweep.cu kTile)
+TILE = 4096           # the smallest onesweep tile: LookBack's sizing
+# Elements per onesweep tile in a pass on 1-4 columns (csrc/onesweep.cu
+# kShapeThreads x kShapeItems).
+TILES = (6144, 8192, 10240, 8192)
 MAX_COLS = 4          # columns one pass carries (3 key words + payload)
 MAX_RADIX = 256       # look-back status words per tile (rbits <= 8)
 RBITS = 8             # digit width of the builder's sort
@@ -236,8 +241,15 @@ def _check_rbits(rbits: int) -> None:
         raise ValueError(f"need 1 <= rbits <= 8, got {rbits}")
 
 
-def n_tiles(n: int) -> int:
-    return -(-n // TILE)
+def tile_elems(n_cols: int) -> int:
+    """Elements a onesweep tile holds in a pass on ``n_cols`` columns."""
+    if not 1 <= n_cols <= MAX_COLS:
+        raise ValueError(f"need 1..{MAX_COLS} columns, got {n_cols}")
+    return TILES[n_cols - 1]
+
+
+def n_tiles(n: int, tile: int = TILE) -> int:
+    return -(-n // tile)
 
 
 def pass_plan(per_word: list[int], rbits: int) -> list[tuple[int, int, int]]:
@@ -350,7 +362,9 @@ class LookBack:
     """Scratch of the onesweep passes of one sort: a zeroed 64-bit
     status word per (tile, digit) and a zeroed tile counter per pass.
     Each pass tags its status words with its own epoch (1, 2, ...), so
-    one zeroing, at the first pass, serves every pass of the sort."""
+    one zeroing, at the first pass, serves every pass of the sort. The
+    status is sized by the smallest tile (``TILE``), so it fits a pass
+    on any number of columns."""
 
     def __init__(self, n: int, passes: int, device):
         self.n, self.passes, self.device = n, passes, device
@@ -420,7 +434,11 @@ def onesweep_pass(cols, key_col: int, shift: int, rbits: int, digit_starts,
     the input when ``digit_counts`` (host) bounds every digit's run
     inside it (see ``_check_pass_buffers``): the MSD scatter writes a
     chunk's buckets into full-length slabs this way. On CPU tensors the
-    plain version places by ``digit_starts`` and needs no look-back."""
+    plain version places by ``digit_starts`` and needs no look-back.
+    In a traced build (``utils/profiling.device_counter``) the kernel
+    adds the status words its look-backs examined to the counter
+    "onesweep_lookback_reads", and the wrapper its tiles to
+    "onesweep_tiles"."""
     _check(cols, key_col, shift, rbits)
     if _device_kind(cols[0], "onesweep_pass") == "cpu":
         return onesweep_pass_reference(cols, key_col, shift, rbits, out,
@@ -434,17 +452,25 @@ def onesweep_pass(cols, key_col: int, shift: int, rbits: int, digit_starts,
         raise ValueError(f"LookBack for n={lookback.n} used at n={n}")
     status, counter, epoch = lookback.next_pass()
     lib = _build.load()
-    if lib.sa_onesweep_tile_elems() != TILE:
-        raise RuntimeError("csrc/onesweep.cu kTile differs from radix.TILE")
+    tile = tile_elems(len(cols))
+    if lib.sa_onesweep_tile_elems(len(cols)) != tile:
+        raise RuntimeError("csrc/onesweep.cu's tile differs from "
+                           "radix.TILES")
+    # Traced builds only: the status words the look-backs examined, read
+    # once at the record's close.
+    reads = device_counter("onesweep_lookback_reads", dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sa_onesweep_pass(*_ptrs(cols), *_ptrs(out), len(cols),
                                    key_col, n, shift, rbits,
                                    digit_starts.data_ptr(),
                                    status.data_ptr(), counter.data_ptr(),
-                                   epoch, stream)
+                                   epoch, None if reads is None
+                                   else reads.data_ptr(), stream)
     _build.check(err, "sa_onesweep_pass")
     count("launches: onesweep_pass")
+    if reads is not None:
+        count("onesweep_tiles", n_tiles(n, tile))
     return out
 
 

@@ -180,7 +180,9 @@ class Record:
     clock (end None while the span is open) and the index of the
     innermost span open at its start (-1 for none). ``counters`` maps a
     name to an int. Device spans wait in ``pending`` as (index, start
-    event, end event) until ``resolve`` reads them into ``device_ms``."""
+    event, end event) until ``resolve`` reads them into ``device_ms``;
+    ``device_counters`` maps (name, device) to an accumulator on the
+    device (``device_counter``), read into ``counters`` at the close."""
 
     def __init__(self):
         self.spans: list[list] = []
@@ -188,6 +190,7 @@ class Record:
         self.pending: list[tuple] = []
         self.device_ms: dict[int, float] = {}
         self.counters: dict[str, int] = {}
+        self.device_counters: dict[tuple, torch.Tensor] = {}
 
     def mark(self) -> int:
         """The index of the next span: ``totals(since=mark())`` reads the
@@ -332,6 +335,26 @@ class span:
             self._rf.__exit__(None, None, None)
 
 
+def device_counter(name: str, device) -> torch.Tensor | None:
+    """The open record's accumulator of counter ``name`` on ``device``: a
+    zeroed int64[1] tensor that kernels add to, the same one for every
+    call in the record, read with one host read when the record closes
+    and added to ``name`` there. None unless a record is open while a
+    ``torch.profiler`` session records (a traced build), so an untraced
+    build passes a kernel no accumulator and reads nothing back."""
+    rec = _open
+    if rec is None or not _PROF._is_profiler_enabled:
+        return None
+    key = (name, str(device))
+    acc = rec.device_counters.get(key)
+    if acc is None:
+        # A copy from the host, not a fill kernel: a traced build launches
+        # the kernels an untraced one does.
+        acc = rec.device_counters[key] = torch.zeros(
+            1, dtype=torch.int64).to(device)
+    return acc
+
+
 def count(name: str, k: int = 1) -> None:
     """Add ``k`` to counter ``name`` in the open record and in the
     process table (``process_counters``)."""
@@ -364,6 +387,10 @@ def record(top: str, info: dict | None = None, own: bool = False):
             yield rec
     finally:
         _open = None
+        for (name, _), acc in rec.device_counters.items():
+            k = int(acc.item())
+            _process_counters[name] = _process_counters.get(name, 0) + k
+            rec.counters[name] = rec.counters.get(name, 0) + k
         rec.resolve()
         if info is not None:
             info.update(rec.summary())

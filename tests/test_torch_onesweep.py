@@ -21,10 +21,11 @@ import torch
 
 from hpc_suffix_array_tpu_torch.kernels import launch_counts, pass_counts
 from hpc_suffix_array_tpu_torch.kernels.radix import (
-    BLOCK, MAX_RADIX, TILE, LookBack, block_digit_sort_reference,
-    digit_histograms, digit_histograms_reference, onesweep_pass,
-    onesweep_pass_reference, pass_plan, place_runs_reference, plan_passes,
-    radix_sort_words, radix_sort_words_reference, run_offsets, sort_passes)
+    BLOCK, MAX_COLS, MAX_RADIX, TILE, TILES, LookBack,
+    block_digit_sort_reference, digit_histograms, digit_histograms_reference,
+    n_tiles, onesweep_pass, onesweep_pass_reference, pass_plan,
+    place_runs_reference, plan_passes, radix_sort_words,
+    radix_sort_words_reference, run_offsets, sort_passes, tile_elems)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -186,6 +187,33 @@ def test_lookback_epochs_share_one_zeroing():
     assert not status.any() and not any(c.item() for _, c, _ in got)
     with pytest.raises(RuntimeError):
         lb.next_pass()
+
+
+def test_tile_elems_by_column_count():
+    """A tile per column count (1-4), a whole number of warps' worth and
+    never smaller than TILE, the tile LookBack is sized by."""
+    assert len(TILES) == MAX_COLS
+    for c in range(1, MAX_COLS + 1):
+        tile = tile_elems(c)
+        assert tile == TILES[c - 1] and tile >= TILE and tile % 32 == 0
+    assert TILE <= min(TILES)
+    for c in (0, MAX_COLS + 1):
+        with pytest.raises(ValueError):
+            tile_elems(c)
+
+
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 5 * TILE + 3,
+                               (1 << 28) + 1])
+def test_lookback_status_fits_every_tile_and_does_not_grow(n):
+    """The status holds a word per (tile, digit) of 4,096-element tiles,
+    whatever the columns: as many as any pass's tiles need, and no more
+    than a 4,096-element tile gave."""
+    lb = LookBack(n, 1, "meta")
+    status, _, _ = lb.next_pass()
+    assert status.shape[0] == -(-n // 4096) * MAX_RADIX
+    assert status.shape[0] == n_tiles(n) * MAX_RADIX
+    for c in range(1, MAX_COLS + 1):
+        assert n_tiles(n, tile_elems(c)) * MAX_RADIX <= status.shape[0]
 
 
 def test_plan_passes_counts_executed_and_skipped():
@@ -464,3 +492,99 @@ def test_radix_sort_words_skips_passes_on_card(live_bits, kinds, rbits):
     assert torch.equal(got_p, want_p)
     for g, w in zip(got_w, want_w):
         assert torch.equal(g, w)
+
+
+def _card_cols(n_cols: int, key_col: int, keys: np.ndarray):
+    n = len(keys)
+    others = [np.arange(n), keys ^ 0x5A5A, np.arange(n)[::-1]]
+    return _on_card(*(others[:key_col] + [keys]
+                      + others[key_col:n_cols - 1]))
+
+
+def _three_calls_match_plain(cols, key_col, shift, rbits):
+    """Three calls of the kernel, each equal to the plain pass."""
+    want = onesweep_pass_reference(cols, key_col, shift, rbits)
+    for _ in range(3):
+        got = onesweep_pass(cols, key_col, shift, rbits,
+                            *_pass_args(cols, key_col, shift, rbits))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
+@pytest.mark.parametrize("tiles,delta", [(1, -1), (1, 0), (1, 1), (5, -1),
+                                         (5, 0), (5, 1)])
+@pytest.mark.parametrize("rbits,shift", [(1, 31), (4, 3), (8, 8)])
+def test_onesweep_pass_at_the_tile_edges_on_card(n_cols, tiles, delta,
+                                                 rbits, shift):
+    """n at one and five of the pass's own tiles, +-1, on 1-4 columns and
+    1-, 4- and 8-bit digits: equal to the plain pass three times."""
+    _need_cuda()
+    n = tiles * tile_elems(n_cols) + delta
+    keys = _keys("uniform", n, n + rbits)
+    key_col = n_cols - 1
+    _three_calls_match_plain(_card_cols(n_cols, key_col, keys), key_col,
+                             shift, rbits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 1, 1, 1), (2, 2, 2, 2),
+                                     (3, 3, 3, 3), (1, 0, 3, 2)])
+@pytest.mark.parametrize("n_cols", [3, 4])
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_onesweep_pass_on_misaligned_slices_on_card(offsets, n_cols, kind):
+    """Source columns sliced at 1-3 elements past a 16-byte boundary, as
+    an MSD bucket's slices are, the same or different a column."""
+    _need_cuda()
+    n = 3 * tile_elems(n_cols) + 777
+    keys = _keys(kind, n, 7)
+    full = _card_cols(n_cols, 0, np.concatenate([keys, keys[:8]]))
+    cols = [c[o:o + n] for c, o in zip(full, offsets)]
+    assert [c.data_ptr() % 16 for c in cols] == [4 * o for o in
+                                                 offsets[:n_cols]]
+    _three_calls_match_plain(cols, 0, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cols", [2, 4])
+@pytest.mark.parametrize("rbits", [4, 8])
+def test_onesweep_pass_into_longer_outputs_on_card(n_cols, rbits):
+    """The MSD scatter's form: each digit's run at a start of its own in
+    outputs longer than the input, bounded by the digit counts; what
+    lies between the runs is left as it was."""
+    _need_cuda()
+    n = 4 * tile_elems(n_cols) + 91
+    keys = _keys("skewed", n, 5)
+    cols = _card_cols(n_cols, 0, keys)
+    digit = ((cols[0].long() & 0xFFFFFFFF) >> 4) & ((1 << rbits) - 1)
+    counts = torch.bincount(digit, minlength=1 << rbits)
+    gaps = torch.arange(1 << rbits, device="cuda") * 3 + 1
+    starts = (torch.cumsum(counts + gaps, 0) - counts).to(torch.int32)
+    size = int(starts[-1] + counts[-1]) + 5
+    want = [torch.full((size,), -7, dtype=torch.int32, device="cuda")
+            for _ in cols]
+    onesweep_pass_reference(cols, 0, 4, rbits, want, starts)
+    for _ in range(3):
+        out = [torch.full_like(w, -7) for w in want]
+        onesweep_pass(cols, 0, 4, rbits, starts, LookBack(n, 1, "cuda"),
+                      out, counts.tolist())
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
+@pytest.mark.parametrize("same", [True, False])
+def test_onesweep_pass_with_one_digit_a_tile_on_card(n_cols, same):
+    """Every tile holds one digit, the same in all tiles or another in
+    each: the look-backs add counts of 0 and of whole tiles."""
+    _need_cuda()
+    tile = tile_elems(n_cols)
+    n = 40 * tile
+    t = np.arange(n) // tile
+    keys = ((np.full(n, 77) if same else (t * 37) % 256) << 16
+            | np.arange(n) % 5).astype(np.int32)
+    _three_calls_match_plain(_card_cols(n_cols, 0, keys), 0, 16, 8)

@@ -2,7 +2,9 @@
 
 Spans nest under the innermost open one and give self times; counters
 go to the open build record and to the process table; with no record
-and no profiler a span does nothing. A ``torch.profiler`` session sees
+and no profiler a span does nothing; a device counter exists only in a
+record open while a profiler records, and is read into the record's
+counters at its close. A ``torch.profiler`` session sees
 each span as a ``user_annotation`` around the ops it covers. The
 builders write the expected span names and counters on every route the
 CPU can force (direct, MSD, refinement with a host residue, doubling +
@@ -101,6 +103,42 @@ def test_counters_reset_per_build_and_accumulate_in_the_process_table():
     assert infos[0]["counters"]["k1_bytes"] > 0
     for name, k in infos[0]["counters"].items():
         assert after[name] - before.get(name, 0) == 2 * k
+
+
+def test_a_device_counter_exists_only_in_a_traced_record():
+    """No accumulator outside a record or without a profiler; inside a
+    traced record one zeroed int64[1] a name, the same at every call,
+    read into the build's and the process's counters at the close."""
+    assert prof.device_counter("x_reads", "cpu") is None
+    with record("top", {}):
+        assert prof.device_counter("x_reads", "cpu") is None
+    before = process_counters().get("x_reads", 0)
+    info: dict = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with record("top", info):
+            acc = prof.device_counter("x_reads", "cpu")
+            assert acc.dtype == torch.int64 and acc.tolist() == [0]
+            acc += 5
+            assert prof.device_counter("x_reads", "cpu") is acc
+            prof.device_counter("x_reads", "cpu").add_(2)
+    assert info["counters"]["x_reads"] == 7
+    assert process_counters()["x_reads"] == before + 7
+
+
+def test_a_traced_cpu_sort_counts_no_look_back():
+    """The plain CPU pass runs no look-back: a traced record of a CPU
+    sort holds neither onesweep counter."""
+    cols = [torch.arange(5000, dtype=torch.int32).flip(0),
+            torch.arange(5000, dtype=torch.int32)]
+    info: dict = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with record("top", info):
+            radix_sort_words(cols[:1], cols[1], 13)
+    assert "onesweep_lookback_reads" not in info["counters"]
+    assert "onesweep_tiles" not in info["counters"]
+    assert info["counters"]["sort_bytes"] == 2 * 5000 * 2 * 4
 
 
 def test_without_record_or_profiler_a_span_does_nothing(monkeypatch):
